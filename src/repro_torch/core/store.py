@@ -846,6 +846,29 @@ class DeltaTensorStore:
             requests, window=window, io=io, cache_partition=cache_partition,
             device=device)
 
+    def ingest(self, tensor_id: str, *, watermark_rows: int = 64,
+               watermark_s: Optional[float] = None,
+               target_file_bytes: Optional[int] = None,
+               compression: Union[None, str, CompressionSpec] = None,
+               commit_retries: Optional[int] = None,
+               clock=None):
+        """A streaming :class:`~repro_torch.data.ingest.IngestWriter` on ``tensor_id``.
+
+        ``writer.append_rows(rows)`` buffers sample rows and commits them
+        as grown FTSF chunk files whenever ``watermark_rows`` rows (or
+        ``watermark_s`` seconds of buffer age) accumulate — each flush is
+        one fenced atomic commit through the two-phase upload path, so
+        concurrent batch writers, ``compact``, ``vacuum``, and epoch-pinned
+        readers all keep working. The tensor is created on first flush if
+        it does not exist (row shape/dtype inferred from the first rows).
+        """
+        from ..data.ingest import IngestWriter  # data sits above core
+        return IngestWriter(self, tensor_id, watermark_rows=watermark_rows,
+                            watermark_s=watermark_s,
+                            target_file_bytes=target_file_bytes,
+                            compression=compression,
+                            commit_retries=commit_retries, clock=clock)
+
     # -- catalog conveniences -------------------------------------------------
 
     def list_tensors(self, version: VersionArg = None) -> List[Tuple[str, str]]:

@@ -1,3 +1,6 @@
-from . import synthetic
+from . import ingest, pipeline, stream, synthetic
+from .ingest import IngestWriter
+from .stream import StreamLoader
 
-__all__ = ["synthetic"]
+__all__ = ["ingest", "pipeline", "stream", "synthetic", "IngestWriter",
+           "StreamLoader"]

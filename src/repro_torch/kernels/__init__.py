@@ -1,4 +1,6 @@
-"""Hand-written CUDA kernels of the store's device read path.
+"""Hand-written CUDA kernels of the port: the store's device read path
+(``block_gather``, ``unshuffle``, ``coo_scatter``) and block-top-k gradient
+compression (``block_norms``, ``block_scatter``, with ``block_gather``).
 
 Structure per kernel: ``csrc/<name>.cu`` holds the CUDA source with a plain
 C interface, ``<name>.py`` its ctypes launcher (with a launch counter) and
@@ -6,10 +8,11 @@ its plain PyTorch version, ``ops.py`` the entry points that dispatch on the
 operand's device, ``_build.py`` the nvcc build. Importing this package
 neither builds nor loads anything.
 """
-from . import block_gather, coo_scatter, ops, unshuffle
+from . import (block_gather, block_norms, block_scatter, coo_scatter, ops,
+               unshuffle)
 from .ops import unshuffle_host
 
-KERNELS = (block_gather, unshuffle, coo_scatter)
+KERNELS = (block_gather, unshuffle, coo_scatter, block_norms, block_scatter)
 
 
 def reset_launch_counts() -> None:
@@ -23,6 +26,6 @@ def launch_counts() -> dict:
     return {mod.__name__.rsplit(".", 1)[-1]: mod.launches for mod in KERNELS}
 
 
-__all__ = ["block_gather", "coo_scatter", "ops", "unshuffle",
-           "unshuffle_host", "KERNELS", "reset_launch_counts",
-           "launch_counts"]
+__all__ = ["block_gather", "block_norms", "block_scatter", "coo_scatter",
+           "ops", "unshuffle", "unshuffle_host", "KERNELS",
+           "reset_launch_counts", "launch_counts"]

@@ -2,7 +2,10 @@
 
 A CUDA tensor launches the hand-written kernel (and raises if it cannot be
 built or launched); a CPU tensor runs the kernel module's plain PyTorch
-version. There is no other route and nothing falls back.
+version. There is no other route and nothing falls back. ``block_topk`` is
+glue over two kernels: ``block_norms``, a stable sort of the norms in
+PyTorch (as the reference's ``jax.lax.top_k`` is outside Pallas), then
+``block_gather``.
 """
 
 from __future__ import annotations
@@ -13,6 +16,8 @@ import numpy as np
 import torch
 
 from . import block_gather as _gather
+from . import block_norms as _norms
+from . import block_scatter as _bscatter
 from . import coo_scatter as _scatter
 from . import unshuffle as _unshuffle
 
@@ -29,6 +34,41 @@ def block_gather(x: torch.Tensor, ids: torch.Tensor,
                  block_shape: Tuple[int, int]) -> torch.Tensor:
     """(K, bh, bw) tiles of 2-D ``x`` at row-major grid ``ids``."""
     return _route(x, _gather)(x, ids, block_shape)
+
+
+def block_norms(x: torch.Tensor, block_shape: Tuple[int, int]) -> torch.Tensor:
+    """``(gh * gw,)`` f32 sums of squares of the (bh, bw) tiles of 2-D ``x``."""
+    return _route(x, _norms)(x, block_shape)
+
+
+def block_scatter(base: torch.Tensor, ids: torch.Tensor, blocks: torch.Tensor,
+                  *, inplace: bool = False) -> torch.Tensor:
+    """``base`` with (K, bh, bw) ``blocks`` written at grid ``ids`` (see
+    :mod:`.block_scatter`; ``inplace=True`` writes into ``base``)."""
+    return _route(base, _bscatter)(base, ids, blocks, inplace=inplace)
+
+
+def block_topk(x: torch.Tensor, block_shape: Tuple[int, int],
+               k: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(ids, blocks) of the ``k`` highest-energy tiles of 2-D ``x``.
+
+    ``block_norms``, then the top ``k``, then ``block_gather``. Ids are int32
+    in order of falling norm; equal norms take the lower id first, as
+    ``jax.lax.top_k`` orders them (a stable descending sort: ``torch.topk``
+    gives no such order on CUDA).
+    """
+    ids = topk_ids(block_norms(x, block_shape), k)
+    return ids, block_gather(x, ids, block_shape)
+
+
+def topk_ids(norms: torch.Tensor, k: int) -> torch.Tensor:
+    """Int32 ids of the ``k`` largest of 1-D ``norms``, largest first; equal
+    norms take the lower id first (``jax.lax.top_k``'s order)."""
+    k = int(k)
+    if not 0 <= k <= norms.numel():
+        raise ValueError(f"k={k} outside [0, {norms.numel()}]")
+    order = torch.sort(norms, descending=True, stable=True).indices[:k]
+    return order.to(torch.int32)
 
 
 def coo_scatter(flat_idx: torch.Tensor, values: torch.Tensor, size: int, *,

@@ -378,6 +378,9 @@ def test_import_without_jax_repro_or_ml_dtypes(tmp_path):
         sys.modules["ml_dtypes"] = None  # import ml_dtypes raises ImportError
         import repro_torch, repro_torch.core, repro_torch.lake
         import repro_torch.kernels, repro_torch.data.synthetic
+        import repro_torch.core.device, repro_torch.train.grad_compress
+        import repro_torch.data.stream, repro_torch.data.pipeline
+        import repro_torch.data.ingest
         from repro_torch.core import DeltaTensorStore
         from repro_torch.lake import LocalFSObjectStore
         store = DeltaTensorStore(LocalFSObjectStore({str(tmp_path)!r}), "t",
