@@ -11,15 +11,27 @@ Phases, each of which exits non-zero on failure:
    csrc`` (one nvcc per source, all at once) and print the build seconds and
    ptxas's register / shared-memory / spill report;
 2. check each kernel against its plain PyTorch version on the card, over
-   dtype and shape sweeps (ragged shapes included) and at the main path's
-   shapes: the max difference must be 0, except for the scatter-add of
-   duplicate float indices (atomics add in another order), held to
-   ``rtol = atol = 1e-6``, and ``block_norms`` of non-dyadic data (positive
-   f32 terms summed in another order), held to ``rtol = 1e-5, atol = 0``;
-   ``block_norms`` of dyadic data (small integers / 8) must be exact;
-3. time each kernel at the main path's shapes with CUDA events, beside its
-   bound (bytes moved / 3.35 TB/s), its plain version and one PyTorch call
-   computing the same function (``library_ms``; the port never calls it);
+   dtype and shape sweeps (ragged shapes, misaligned bases and ids out of
+   range included) that reach every variant of ``unshuffle`` and
+   ``block_gather``, and at the main path's shapes, printing the variant
+   each main-shape call took: the max difference must be 0, except for the
+   scatter-add of duplicate float indices (atomics add in another order),
+   held to ``rtol = atol = 1e-6``, and ``block_norms`` of non-dyadic data
+   (positive f32 terms summed in another order), held to ``rtol = 1e-5,
+   atol = 0``; ``block_norms`` of dyadic data (small integers / 8) must be
+   exact;
+3. time each kernel at the main path's shapes with CUDA events (the median
+   of 5 samples, each the mean of back-to-back calls, with their min and
+   max; ``unshuffle`` and ``block_gather`` in samples alternating with
+   their library call), beside its bound (bytes moved / 3.35 TB/s), its
+   plain version and one PyTorch call computing the same function
+   (``library_ms``; the port never calls it); the device time per launch
+   of ``unshuffle`` and ``block_gather`` and of their library calls from
+   torch.profiler; ``block_gather``'s two variants in turns at the main
+   shape, and at the compressor's (8, 128) shape; the frame-decode hook's
+   wall and device time per 12 MiB chunk in turns with the other ways to
+   the same bytes, and its split (H2D, kernel, D2H, and the pinned
+   alternatives); the host time of the launch path's parts;
 4. drive the store's device read path at the paper's width: N FFHQ-like
    images of 3x1024x1024 f32 (N = 256 by default; ``--images`` cuts the
    image count, never the image shape) stored as FTSF with 3-D chunks under
@@ -28,8 +40,10 @@ Phases, each of which exits non-zero on failure:
    ``get_device`` full, ``read_device`` of X[0:100], ``read_many(...,
    device="cuda")``, COO full and COO X[1]. Every launch counter is set to 0
    just before these reads and read just after; each kernel of the read
-   path must have run. Each result is then checked byte for byte against
-   the host ``read`` / ``read_slice`` with the CUDA unshuffle hook taken out;
+   path must have run, ``unshuffle``'s register variant and
+   ``block_gather``'s TMA variant among them. Each result is then checked
+   byte for byte against the host ``read`` / ``read_slice`` with the CUDA
+   unshuffle hook taken out;
 5. the training feed:
    (a) one epoch of ``StreamLoader(store, "ffhq", batch_size=16, window=4,
    seed=0, device="cuda")`` over the FTSF tensor of phase 4, every batch a
@@ -65,6 +79,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
@@ -129,19 +144,111 @@ def same_bytes(a, b) -> bool:
                        b.contiguous().reshape(-1).view(torch.uint8))
 
 
-def time_ms(fn, iters: int) -> float:
-    """Mean device time of ``fn`` over ``iters`` back-to-back calls."""
+SAMPLES = 5  # timing samples per measurement; the median is reported
+
+
+def time_ms(fn, iters: int):
+    """(median, min, max) over SAMPLES samples of the device time of ``fn``
+    in ms, each sample the mean of ``iters`` back-to-back calls between two
+    CUDA events, after one warm-up call."""
+    return time_turns_ms([fn], iters)[0]
+
+
+def time_pair_ms(fn_a, fn_b, iters: int):
+    """time_ms of two functions over the same window: their samples
+    alternate (a, b, a, b, ...), so a drift of the card hits both alike."""
+    return tuple(time_turns_ms([fn_a, fn_b], iters))
+
+
+def time_turns_ms(fns, iters: int):
+    """time_ms of each of ``fns``, their samples taken in turns."""
     import torch
+    for fn in fns:
+        fn()
+    torch.cuda.synchronize()
+    means = [[] for _ in fns]
+    for _ in range(SAMPLES):
+        for fn, acc in zip(fns, means):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            for _ in range(iters):
+                fn()
+            end.record()
+            end.synchronize()
+            acc.append(start.elapsed_time(end) / iters)
+    out = []
+    for acc in means:
+        acc.sort()
+        out.append((acc[len(acc) // 2], acc[0], acc[-1]))
+    return out
+
+
+def wall_ms(fn, reps: int):
+    """(median, min, max) host wall ms of ``fn`` (which ends synchronised)
+    over ``reps`` calls, after one warm-up call."""
+    fn()
+    walls = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    walls.sort()
+    return walls[len(walls) // 2], walls[0], walls[-1]
+
+
+def spread(t) -> str:
+    return f"{t[0]!r} ms (min {t[1]!r}, max {t[2]!r})"
+
+
+def device_ms_per_call(torch, fn, iters: int):
+    """Device time per call of ``fn`` in ms from torch.profiler: the device
+    rows' self time over ``iters`` calls, and each row's name, count and
+    ms per call. (None, []) when the profiler saw no device time."""
+    from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(iters):
-        fn()
-    end.record()
-    end.synchronize()
-    return start.elapsed_time(end) / iters
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    total_us, names = 0.0, []
+    for e in prof.key_averages():
+        if e.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        us = getattr(e, "self_device_time_total", None)
+        if us is None:
+            us = getattr(e, "self_cuda_time_total", 0)
+        if us:
+            total_us += us
+            names.append(f"{e.key[:80]} x{e.count}: {us / 1e3 / iters!r} ms")
+    if total_us == 0:
+        return None, []
+    return total_us / 1e3 / iters, names
+
+
+def forced_variant(mod, which, fn):
+    """``fn()`` with ``mod``'s variant chooser fixed to ``which``, to time one
+    variant at a shape the chooser gives to another."""
+    chooser = mod.variant
+    mod.variant = lambda *args: which
+    try:
+        return fn()
+    finally:
+        mod.variant = chooser
+
+
+def reset_counts(kern) -> None:
+    """Every launch counter, and the per-variant counts, to 0."""
+    kern.reset_launch_counts()
+    for mod in (kern.unshuffle, kern.block_gather):
+        for key in mod.variant_launches:
+            mod.variant_launches[key] = 0
+
+
+def variant_counts(kern) -> dict:
+    return {"unshuffle": dict(kern.unshuffle.variant_launches),
+            "block_gather": dict(kern.block_gather.variant_launches)}
 
 
 # -- phase 2: kernels against their plain versions ----------------------------
@@ -150,9 +257,6 @@ SHAPES_BLOCKS = [((16, 128), (8, 128)), ((32, 256), (8, 128)),
                  ((24, 384), (8, 128)), ((64, 128), (16, 64)),
                  ((9, 130), (4, 64)), ((7, 1000), (1, 1000)),
                  ((5, 333), (1, 333)), ((3, 17), (2, 5))]
-FIXED_WIDTH = ["int8", "uint8", "int16", "uint16", "int32", "uint32", "int64",
-               "uint64", "float16", "float32", "float64", "complex64",
-               "complex128", "bool"]
 
 
 def _rand(torch, rng, shape, dtype, dev):
@@ -176,10 +280,29 @@ def _rand(torch, rng, shape, dtype, dev):
     return torch.from_numpy((x * 50).astype(np.int64)).to(dev, dtype)
 
 
+UNSHUFFLE_NS = (1, 15, 16, 17, 4093, 65543, 3 * 2 ** 20)
+# storage offsets of the planes: with the odd n above, every residue of a
+# plane row's address mod 8 (the register variant's load alignments)
+UNSHUFFLE_OFFSETS = (0, 1, 2, 4, 5)
+# items of the frame of one 3x1024x1024 f32 chunk: the frame holds the whole
+# part file, the chunk's 12 MiB and about 1.1 KiB of the file's own
+FRAME_ITEMS = 3146018
+
+
+def check_gather(torch, kern, x, ids, bs, what):
+    """block_gather of ``x`` equals its plain version byte for byte."""
+    got = kern.block_gather.launch(x, ids, bs)
+    want = kern.block_gather.plain(x.contiguous(), ids, bs)
+    if not same_bytes(got, want):
+        fail(f"block_gather {tuple(x.shape)} {bs} {what}: max diff "
+             f"{max_abs_err(got, want)}")
+
+
 def check_kernels(torch, np, kern, main):
     """Sweeps + main-path shapes; returns {kernel: max_abs_err at main path}."""
     dev = torch.device("cuda")
     rng = np.random.default_rng(0)
+    reset_counts(kern)
     gather_dtypes = [torch.float32, torch.bfloat16, torch.int32, torch.float64,
                      torch.int8, torch.bool, torch.complex64, torch.complex128,
                      torch.uint16, torch.float16]
@@ -192,41 +315,60 @@ def check_kernels(torch, np, kern, main):
             for ids_np in (rng.choice(nb + 1, size=min(nb + 1, 6), replace=False),
                            np.array([nb + 5, -1, 0, nb - 1])):
                 ids = torch.from_numpy(ids_np.astype(np.int32)).to(dev)
-                got = kern.block_gather.launch(x, ids, bs)
-                want = kern.block_gather.plain(x, ids, bs)
-                if not same_bytes(got, want):
-                    fail(f"block_gather {shape} {bs} {dtype} ids={ids_np}: "
-                         f"max diff {max_abs_err(got, want)}")
+                check_gather(torch, kern, x, ids, bs, f"{dtype} ids={ids_np}")
                 n += 1
             # unaligned start: a contiguous view one element into its storage
             xs = _rand(torch, rng, (shape[0] * shape[1] + 1,), dtype,
                        dev)[1:].view(shape)
             ids = torch.from_numpy(rng.choice(nb, size=min(nb, 4),
                                               replace=False).astype(np.int32)).to(dev)
-            if not same_bytes(kern.block_gather.launch(xs, ids, bs),
-                              kern.block_gather.plain(xs.contiguous(), ids, bs)):
-                fail(f"block_gather unaligned {shape} {bs} {dtype}")
+            check_gather(torch, kern, xs, ids, bs, f"{dtype} unaligned")
             n += 1
-    log(f"[check] block_gather sweep: {n} cases, max diff 0")
+    # the TMA ring's cases: one 12 MiB tile (K = 1), K not a multiple of
+    # the SM count, several tiles per row, tiles of several 32 KiB pieces
+    # with a short last one, x 4 bytes off alignment, ids out of range
+    g = torch.Generator(device=dev).manual_seed(5)
+    row = 3 * 1024 * 1024
+    for shape, bs, k in (((2, row), (1, row), 1), ((300, 4096), (1, 4096), 133),
+                         ((64, 8192), (1, 2048), 257), ((40, 30000), (1, 10000), 61),
+                         ((17, 100000), (1, 50000), 35)):
+        flat = torch.rand(shape[0] * shape[1] + 1, generator=g, device=dev)
+        nb = shape[0] * (shape[1] // bs[1])
+        ids_sets = [torch.randint(0, nb, (k,), generator=g, device=dev,
+                                  dtype=torch.int32),
+                    torch.randint(-3, nb + 3, (k,), generator=g, device=dev,
+                                  dtype=torch.int32)]
+        for x in (flat[:-1].view(shape), flat[1:].view(shape)):  # 4 B off
+            for ids in ids_sets:
+                check_gather(torch, kern, x, ids, bs, f"K={k}")
+                n += 1
+        del flat
+    used = dict(kern.block_gather.variant_launches)
+    if min(used.values()) <= 0:
+        fail(f"the block_gather sweep did not reach every variant: {used}")
+    log(f"[check] block_gather sweep: {n} cases, max diff 0; launches by "
+        f"variant {json.dumps(used)}")
 
     n = 0
-    for name in FIXED_WIDTH:
-        it = np.dtype(name).itemsize
-        for cols in (1, 3, 511, 512, 513, 1024, 1300, 4093, 65536 + 7):
-            planes = torch.from_numpy(rng.integers(0, 256, (it, cols),
-                                                   dtype=np.uint8)).to(dev)
-            got = kern.unshuffle.launch(planes)
-            if not torch.equal(got, kern.unshuffle.plain(planes)):
-                fail(f"unshuffle itemsize {it} n {cols}")
-            n += 1
+    reset_counts(kern)
     for it in range(1, kern.unshuffle.MAX_ITEMSIZE + 1):
-        planes = torch.from_numpy(rng.integers(0, 256, (it, 2051),
-                                               dtype=np.uint8)).to(dev)
-        if not torch.equal(kern.unshuffle.launch(planes),
-                           kern.unshuffle.plain(planes)):
-            fail(f"unshuffle itemsize {it}")
-        n += 1
-    log(f"[check] unshuffle sweep: {n} cases, max diff 0")
+        for cols in UNSHUFFLE_NS:
+            flat = torch.randint(0, 256, (it * cols + max(UNSHUFFLE_OFFSETS),),
+                                 generator=g, device=dev, dtype=torch.uint8)
+            for off in UNSHUFFLE_OFFSETS:  # contiguous, all but 0 misaligned
+                planes = flat[off:off + it * cols].view(it, cols)
+                got = kern.unshuffle.launch(planes)
+                if not torch.equal(got, kern.unshuffle.plain(planes)):
+                    fail(f"unshuffle itemsize {it} n {cols} offset {off}: max "
+                         f"diff {max_abs_err(got, kern.unshuffle.plain(planes))}")
+                n += 1
+            del flat
+    used = dict(kern.unshuffle.variant_launches)
+    if min(used.values()) <= 0:
+        fail(f"the unshuffle sweep did not reach every variant: {used}")
+    log(f"[check] unshuffle sweep: {n} cases (itemsize 1-32 x n {UNSHUFFLE_NS} "
+        f"x offset {UNSHUFFLE_OFFSETS}), max diff 0; launches by variant "
+        f"{json.dumps(used)}")
 
     n = 0
     dup_worst = 0.0
@@ -269,6 +411,7 @@ def check_kernels(torch, np, kern, main):
     # the main path's shapes
     errs = {}
     x, ids = main["gather"]
+    reset_counts(kern)
     got = kern.block_gather.launch(x, ids, (1, x.shape[1]))
     want = kern.block_gather.plain(x, ids, (1, x.shape[1]))
     errs["block_gather"] = max_abs_err(got, want)
@@ -276,6 +419,8 @@ def check_kernels(torch, np, kern, main):
     planes = main["unshuffle"]
     errs["unshuffle"] = max_abs_err(kern.unshuffle.launch(planes),
                                     kern.unshuffle.plain(planes))
+    log(f"[check] variants taken at the main-path shapes: "
+        f"{json.dumps(variant_counts(kern))}")
     idx, vals, size = main["coo_scatter"]
     got = kern.coo_scatter.launch(idx, vals, size, unique=True)
     want = kern.coo_scatter.plain(idx, vals, size, unique=True)
@@ -427,21 +572,66 @@ def main_shapes(torch, np, n_images, coo_size, coo_nnz):
 
 
 def time_kernels(torch, kern, main):
-    """{kernel: (ms, plain_ms, library_ms, bound_ms)} at main-path shapes."""
-    out = {}
+    """{kernel: (ms, plain_ms, library_ms, bound_ms)} at main-path shapes,
+    each time a (median, min, max) triple; plus {kernel: (device ms per
+    launch, library device ms per call)} from torch.profiler for the two
+    kernels redesigned for Hopper."""
+    out, dev_ms = {}, {}
     x, ids = main["gather"]
     bs = (1, x.shape[1])
     ids64 = ids.to(torch.int64)
     tile_bytes = x.shape[1] * x.element_size()
     bound = (2 * ids.numel() * tile_bytes + ids.numel() * 4) / HBM_BYTES_PER_S * 1e3
-    out["block_gather"] = (time_ms(lambda: kern.block_gather.launch(x, ids, bs), 10),
-                           time_ms(lambda: kern.block_gather.plain(x, ids, bs), 5),
-                           time_ms(lambda: x.index_select(0, ids64), 10), bound)
+    def gather_tiles():  # the word-copy variant at the same shape
+        return forced_variant(kern.block_gather, "tiles",
+                              lambda: kern.block_gather.launch(x, ids, bs))
+
+    k_t, tiles_t, lib_t = time_turns_ms(
+        [lambda: kern.block_gather.launch(x, ids, bs), gather_tiles,
+         lambda: x.index_select(0, ids64)], 10)
+    out["block_gather"] = (k_t, time_ms(lambda: kern.block_gather.plain(x, ids, bs), 5),
+                           lib_t, bound)
+    dev_ms["block_gather"] = (
+        device_ms_per_call(torch, lambda: kern.block_gather.launch(x, ids, bs), 10),
+        device_ms_per_call(torch, lambda: x.index_select(0, ids64), 10))
+    tiles_dev = device_ms_per_call(torch, gather_tiles, 10)[0]
+    log(f"[time] block_gather variants at the main shape, in turns (TMA ring, "
+        f"word copies, index_select): TMA ring {spread(k_t)}, word copies "
+        f"{spread(tiles_t)}, index_select {spread(lib_t)}; device ms per call "
+        f"(torch.profiler): TMA ring {dev_ms['block_gather'][0][0]!r}, word "
+        f"copies {tiles_dev!r}, index_select {dev_ms['block_gather'][1][0]!r}")
+    # a yardstick beside the bound: one contiguous device-to-device copy_
+    # of all of x, the same bytes in and out
+    dst = torch.empty_like(x)
+    log(f"[time] block_gather's ceiling, copy_ of the same {x.numel() * 4} B "
+        f"in one contiguous copy: {spread(time_ms(lambda: dst.copy_(x), 10))}, "
+        f"device {device_ms_per_call(torch, lambda: dst.copy_(x), 10)[0]!r} ms")
+    del dst
     planes = main["unshuffle"]
     bound = 2 * planes.numel() / HBM_BYTES_PER_S * 1e3
-    out["unshuffle"] = (time_ms(lambda: kern.unshuffle.launch(planes), 50),
-                        time_ms(lambda: kern.unshuffle.plain(planes), 20),
-                        time_ms(lambda: planes.t().contiguous(), 50), bound)
+    k_t, lib_t = time_pair_ms(lambda: kern.unshuffle.launch(planes),
+                              lambda: planes.t().contiguous(), 50)
+    out["unshuffle"] = (k_t, time_ms(lambda: kern.unshuffle.plain(planes), 20),
+                        lib_t, bound)
+    dev_ms["unshuffle"] = (
+        device_ms_per_call(torch, lambda: kern.unshuffle.launch(planes), 100),
+        device_ms_per_call(torch, lambda: planes.t().contiguous(), 100))
+    # the same launches with the planes out of L2: eight sets in turn (96
+    # MiB of planes, and as many items, against the 50 MB L2)
+    cold = [torch.randint(0, 256, planes.shape, device=planes.device,
+                          dtype=torch.uint8) for _ in range(8)]
+    turn = [0]
+
+    def next_planes():
+        turn[0] += 1
+        return cold[turn[0] % len(cold)]
+
+    k_cold = device_ms_per_call(torch, lambda: kern.unshuffle.launch(next_planes()), 96)
+    l_cold = device_ms_per_call(torch, lambda: next_planes().t().contiguous(), 96)
+    log(f"[time] unshuffle device time per call with its planes out of L2 "
+        f"(torch.profiler): kernel {k_cold[0]!r} ms, library {l_cold[0]!r} ms, "
+        f"bound {bound!r} ms (bytes)")
+    del cold
     idx, vals, size = main["coo_scatter"]
     eb = vals.element_size()
     bound = (size * eb + idx.numel() * (8 + eb)) / HBM_BYTES_PER_S * 1e3
@@ -473,6 +663,19 @@ def time_kernels(torch, kern, main):
         time_ms(lambda: kern.block_scatter.plain(base, sel, tiles,
                                                  inplace=True), 5),
         time_ms(lambda: grid.index_put_((ti, tj), tiles), 30), bound)
+    # block_gather at the compressor's shape: the K top tiles of one pod's
+    # w_gate at L = 4 (the (8, 128) tile variant); tiles read and written
+    # once, plus the ids
+    egrid = e.view(gh, BLOCK[0], gw, BLOCK[1]).permute(0, 2, 1, 3)
+    g_bound = (2 * tiles.numel() * 4 + sel.numel() * 4) / HBM_BYTES_PER_S * 1e3
+    reset_counts(kern)
+    g_ms = time_ms(lambda: kern.block_gather.launch(e, sel, BLOCK), 30)
+    g_lib = time_ms(lambda: egrid[ti, tj], 30)
+    log(f"[time] block_gather at the compress shape, K = {sel.numel()} "
+        f"{BLOCK} f32 tiles of ({m}, {n}), launches by variant "
+        f"{json.dumps(kern.block_gather.variant_launches)}: kernel "
+        f"{spread(g_ms)}, library (permuted view [ti, tj]) {spread(g_lib)}, "
+        f"bound {g_bound!r} ms (bytes)")
     # with its copy of base (no caller on the main path): every element of
     # out is written once and only base's elements outside the tiles need
     # reading, so at least base read and out written, plus the ids
@@ -480,37 +683,211 @@ def time_kernels(torch, kern, main):
     copy_ms = time_ms(lambda: kern.block_scatter.launch(base, sel, tiles), 30)
     copy_lib_ms = time_ms(lambda: base.clone().view(gh, BLOCK[0], gw, BLOCK[1])
                           .permute(0, 2, 1, 3).index_put_((ti, tj), tiles), 30)
-    log(f"[time] block_scatter with its copy of base: kernel {copy_ms!r} ms, "
-        f"clone + index_put_ {copy_lib_ms!r} ms, bound {copy_bound!r} ms (bytes)")
+    log(f"[time] block_scatter with its copy of base: kernel {spread(copy_ms)}, "
+        f"clone + index_put_ {spread(copy_lib_ms)}, bound {copy_bound!r} ms (bytes)")
     # the untied unembedding's rows (49155 f32) take single-element loads
     u = torch.randn((4096, 49155), device=e.device)
     u_bound = (u.numel() * 4 + 512 * 385 * 4) / HBM_BYTES_PER_S * 1e3
     log(f"[time] block_norms on unembed (4096, 49155) f32, unvectorised "
-        f"loads: {time_ms(lambda: kern.block_norms.launch(u, BLOCK), 20)!r} ms, "
+        f"loads: {spread(time_ms(lambda: kern.block_norms.launch(u, BLOCK), 20))}, "
         f"bound {u_bound!r} ms (bytes)")
     del u
     for name, (ms, plain_ms, lib_ms, bound_ms) in out.items():
         mode = " (in place)" if name == "block_scatter" else ""
-        log(f"[time] {name}{mode}: kernel {ms!r} ms, plain {plain_ms!r} ms, "
-            f"library {lib_ms!r} ms, bound {bound_ms!r} ms (bytes)")
-    return out
+        log(f"[time] {name}{mode}: kernel {spread(ms)}, plain {spread(plain_ms)}, "
+            f"library {spread(lib_ms)}, bound {bound_ms!r} ms (bytes)")
+    for name, ((k_ms, k_names), (l_ms, l_names)) in dev_ms.items():
+        log(f"[time] {name} device time per call (torch.profiler): kernel "
+            f"{k_ms!r} ms {k_names}, library {l_ms!r} ms {l_names}")
+    return out, {name: (k[0], lib[0]) for name, (k, lib) in dev_ms.items()}
 
 
-def time_unshuffle_hook(np, ops):
-    """Wall time of the frame-decode hook on one f32 chunk (H2D + kernel +
-    D2H), the path decode_frame takes."""
-    planes = np.random.default_rng(2).integers(0, 256, (4, 3 * 1024 * 1024),
-                                               dtype=np.uint8)
-    ops.unshuffle_host(planes, device="cuda")
-    t0 = time.perf_counter()
+def time_unshuffle_hook(torch, np, kern, ops):
+    """The frame-decode hook on one f32 chunk's frame, called with ``out=``
+    as byte_unshuffle calls it, against the other ways to the same bytes,
+    in turns in this process: wall and device time per chunk (device rows
+    of torch.profiler by operation). Then the split of the hook's parts and
+    of the pinned alternatives.
+
+    The ways: the hook (one H2D by ``unshuffle.upload_planes`` straight from
+    the read-only planes, the register variant, one D2H into ``out``); the
+    same with torch's H2D; that with the shared variant; an earlier form of
+    the hook (the planes landed in rows padded to 16 items, which torch
+    does through a padding copy on the card, then the register variant on
+    aligned rows); and the earliest hook's pinned staging both ways with
+    the copy byte_unshuffle made after it."""
+    dev = torch.device("cuda")
+    n = FRAME_ITEMS
+    planes = np.frombuffer(np.random.default_rng(2).integers(
+        0, 256, 4 * n, dtype=np.uint8).tobytes(), dtype=np.uint8).reshape(4, n)
+    # read-only planes, as decoded: torch wraps them with a warning, which
+    # only says that torch could write them
+    with warnings.catch_warnings():
+        warnings.simplefilter("ignore", UserWarning)
+        t_planes = torch.from_numpy(planes)
+    # a copy that numpy owns, to tell the source buffer's part in the H2D
+    # from the route's
+    t_copy = torch.from_numpy(planes.copy())
+    want = np.ascontiguousarray(planes.T)
+    out = np.empty((n, 4), dtype=np.uint8)
+    t_out = torch.from_numpy(out)
+    pitch = -(-n // 16) * 16
     reps = 20
-    for _ in range(reps):
-        out = ops.unshuffle_host(planes, device="cuda")
-    ms = (time.perf_counter() - t0) / reps * 1e3
-    if not np.array_equal(out, planes.T):
-        fail("unshuffle_host differs from the numpy transpose")
-    log(f"[time] unshuffle hook (pinned H2D + kernel + D2H, 12 MiB chunk): "
-        f"{ms!r} ms wall")
+    sync = torch.cuda.synchronize
+
+    def hook():
+        ops.unshuffle_host(planes, device="cuda", out=out)
+
+    def torch_h2d():
+        rows = torch.empty((4, n), dtype=torch.uint8, device=dev)
+        rows.copy_(t_planes)
+        t_out.copy_(kern.unshuffle.launch(rows))
+
+    def shared():
+        forced_variant(kern.unshuffle, "shared", torch_h2d)
+
+    def padded_on_card():
+        rows = torch.empty((4, pitch), dtype=torch.uint8, device=dev)
+        rows[:, :n].copy_(t_planes)
+        t_out.copy_(kern.unshuffle.launch(rows)[:n])
+
+    def staged_steps():
+        src = torch.empty(planes.shape, dtype=torch.uint8, pin_memory=True)
+        src.numpy()[...] = planes
+        items = kern.unshuffle.launch(src.to(dev, non_blocking=True))
+        host = torch.empty(items.shape, dtype=torch.uint8, pin_memory=True)
+        host.copy_(items)
+        out[...] = host.numpy()
+
+    ways = {"hook": hook, "torch H2D": torch_h2d,
+            "torch H2D, shared variant": shared,
+            "padded on the card": padded_on_card,
+            "pinned staging + copy": staged_steps}
+    walls = {name: [] for name in ways}
+    for name in list(ways) + list(reversed(ways)):
+        out[...] = 0
+        walls[name].append(wall_ms(ways[name], reps))
+        if not np.array_equal(out, want):
+            fail(f"unshuffle hook way {name!r} differs from the numpy transpose")
+    if not np.array_equal(ops.unshuffle_host(planes, device="cuda"), want):
+        fail("unshuffle_host without out= differs from the numpy transpose")
+    per_way = []
+    for name, fn in ways.items():
+        reset_counts(kern)
+        d_ms, rows_seen = device_ms_per_call(torch, fn, 10)
+        per_way.append(f"{name}: wall {'; '.join(spread(t) for t in walls[name])}, "
+                       f"device {d_ms!r} ms per chunk {rows_seen}, variants "
+                       f"{json.dumps(kern.unshuffle.variant_launches)}")
+    log(f"[time] unshuffle hook ways, one f32 chunk's frame ({n} items of 4 "
+        f"bytes: the chunk and its part file's own bytes), in turns there and "
+        f"back, wall median of {reps} per turn: " + " | ".join(per_way))
+
+    rows = torch.empty((4, n), dtype=torch.uint8, device=dev)
+    d_items = kern.unshuffle.launch(rows)
+    src = torch.empty((4, n), dtype=torch.uint8, pin_memory=True)
+    host = torch.empty((n, 4), dtype=torch.uint8, pin_memory=True)
+
+    def upload():
+        kern.unshuffle.upload_planes(planes, rows)
+        sync()
+
+    def kernel():
+        kern.unshuffle.launch(rows)
+        sync()
+
+    def h2d_torch():
+        rows.copy_(t_planes)
+        sync()
+
+    def h2d_copy():
+        rows.copy_(t_copy)
+        sync()
+
+    def h2d_pinned():
+        rows.copy_(src, non_blocking=True)
+        sync()
+
+    h2d_ways = {"upload_planes": upload, "torch copy_": h2d_torch,
+                "torch copy_ from a numpy-owned copy": h2d_copy}
+    h2d = {name: [] for name in h2d_ways}  # in turns there and back
+    for name in list(h2d_ways) + list(reversed(h2d_ways)):
+        h2d[name].append(wall_ms(h2d_ways[name], reps))
+    log(f"[time] unshuffle hook's H2D from the pageable planes, in turns: "
+        + "; ".join(f"{k} {' / '.join(spread(t) for t in v)}"
+                    for k, v in h2d.items()))
+    parts = {
+        "H2D by upload_planes, from the pageable planes": h2d["upload_planes"][0],
+        "kernel (launch + sync)": wall_ms(kernel, reps),
+        "D2H into pageable out": wall_ms(lambda: t_out.copy_(d_items), reps),
+    }
+    alt = {
+        "copy-in (planes -> pinned)": wall_ms(
+            lambda: src.numpy().__setitem__(Ellipsis, planes), reps),
+        "H2D (pinned)": wall_ms(h2d_pinned, reps),
+        "D2H (pinned)": wall_ms(lambda: host.copy_(d_items), reps),
+        "copy-out (pinned -> out)": wall_ms(
+            lambda: out.__setitem__(Ellipsis, host.numpy()), reps),
+    }
+    log(f"[time] unshuffle hook split (wall, median of {reps}): "
+        + "; ".join(f"{k} {spread(v)}" for k, v in parts.items())
+        + f"; sum of medians {sum(v[0] for v in parts.values())!r} ms")
+    log(f"[time] unshuffle hook, other transfers (wall, median of {reps}): "
+        + "; ".join(f"{k} {spread(v)}" for k, v in alt.items())
+        + f"; copy-in + pinned H2D {alt['copy-in (planes -> pinned)'][0] + alt['H2D (pinned)'][0]!r} ms, "
+        f"pinned D2H + copy-out {alt['D2H (pinned)'][0] + alt['copy-out (pinned -> out)'][0]!r} ms")
+
+
+def time_launch_path(torch, kern, build):
+    """Host microseconds per call of the launch path's parts, and of a whole
+    ``unshuffle`` launch on small planes (its kernel shorter than the host
+    path, so the host sets the rate), without synchronising. The earlier
+    forms (the ctypes function loaded and typed on every call, the
+    ``torch.cuda.device`` context always entered) are timed beside the
+    current ones."""
+    import ctypes
+    calls = 5000
+    planes = torch.zeros((4, 4096), dtype=torch.uint8, device="cuda")
+    args = kern.unshuffle._ARGTYPES
+
+    def per_call_us(fn):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        us = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return us
+
+    def typed_each_call():
+        fn = getattr(build.load("unshuffle"), "rt_unshuffle")
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
+
+    def device_context():
+        with torch.cuda.device(planes.device):
+            pass
+
+    def device_scope():
+        with build.device_scope(planes):
+            pass
+
+    us = {"whole launch, unshuffle (4, 4096)": per_call_us(
+              lambda: kern.unshuffle.launch(planes)),
+          "function lookup, memoised": per_call_us(
+              lambda: build.function("unshuffle", "rt_unshuffle", args)),
+          "function lookup, typed on every call (earlier)": per_call_us(
+              typed_each_call),
+          "device_scope on the current card": per_call_us(device_scope),
+          "torch.cuda.device on the current card (earlier)": per_call_us(
+              device_context)}
+    saved = (us["function lookup, typed on every call (earlier)"]
+             - us["function lookup, memoised"]
+             + us["torch.cuda.device on the current card (earlier)"]
+             - us["device_scope on the current card"])
+    log(f"[time] launch path, host us per call (mean of {calls}): "
+        + "; ".join(f"{k} {v!r}" for k, v in us.items())
+        + f"; saved per launch against the earlier forms {saved!r} us")
 
 
 # -- phase 4: the main path ---------------------------------------------------
@@ -559,7 +936,7 @@ def main_path(torch, np, n_images, workdir):
     ]
 
     torch.cuda.synchronize()
-    kernels.reset_launch_counts()
+    reset_counts(kernels)
     results = []
     for name, fn, _ in reads:
         store.io.stats.reset()
@@ -579,10 +956,17 @@ def main_path(torch, np, n_images, workdir):
             f"max_memory_allocated {torch.cuda.max_memory_allocated()} B, "
             f"io_stats {json.dumps(stats, sort_keys=True, default=str)}")
     counts = kernels.launch_counts()
-    log(f"[read] launches during the read path: {json.dumps(counts)}")
+    variants = variant_counts(kernels)
+    log(f"[read] launches during the read path: {json.dumps(counts)}; by "
+        f"variant {json.dumps(variants)}")
     for name in READ_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the read path")
+    for name, which in (("unshuffle", "register"), ("block_gather", "rows_tma")):
+        if variants[name][which] <= 0:
+            fail(f"the read path did not launch {name}'s {which} variant")
+        log(f"[read] the read path launched {name}'s {which} variant "
+            f"{variants[name][which]} times")
 
     # byte-for-byte against the host decode, with the numpy unshuffle
     set_unshuffle_kernel(None)
@@ -651,7 +1035,7 @@ def profile_call(torch, name, fn):
 
 # device operations of the compressed step by kernel, from their names
 STEP_SPLIT = (("block_norms", ("norms_warp", "norms_block")),
-              ("block_gather", ("gather_tiles",)),
+              ("block_gather", ("gather_tiles", "gather_rows_tma")),
               ("block_scatter", ("scatter_tiles", "copy_words")),
               ("sort (top k)", ("sort",)))
 
@@ -681,7 +1065,7 @@ def stream_path(torch, np, store, n_images):
     cuda_hook(True)
     torch.cuda.synchronize()
     store.io.stats.reset()
-    kernels.reset_launch_counts()
+    reset_counts(kernels)
     loader = StreamLoader(store, "ffhq", device="cuda", **kw)
     batches, waits = [], []
     t0 = time.perf_counter()
@@ -758,7 +1142,8 @@ def stream_path(torch, np, store, n_images):
         f"host loader's ({int((first['samples'] >= n_images).sum())} ingested "
         f"rows in it)")
     cuda_hook(True)
-    log(f"[stream] launches on the stream path: {json.dumps(counts)}")
+    log(f"[stream] launches on the stream path: {json.dumps(counts)}; by "
+        f"variant {json.dumps(variant_counts(kernels))}")
     if counts["unshuffle"] <= 0:
         fail("unshuffle was not launched on the stream path")
     return counts
@@ -884,7 +1269,7 @@ def compress_path(torch, np, layers):
     grads = dyadic_grads(torch, shapes, gen, dev)
     resid = gc.init_residuals(grads)
     torch.cuda.synchronize()
-    kern.reset_launch_counts()
+    reset_counts(kern)
     grad_bytes = PODS * n_params * 2
     for step in (1, 2, 3):
         if step > 1:
@@ -921,7 +1306,8 @@ def compress_path(torch, np, layers):
         if step < 3:
             del grads, new_r
     counts = kern.launch_counts()
-    log(f"[compress] launches over the three steps: {json.dumps(counts)}")
+    log(f"[compress] launches over the three steps: {json.dumps(counts)}; "
+        f"block_gather by variant {json.dumps(kern.block_gather.variant_launches)}")
     for name in COMPRESS_KERNELS:
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the compression path")
@@ -983,8 +1369,9 @@ def main() -> int:
     main = main_shapes(torch, np, args.images, int(np.prod(coo_shape)), coo_nnz)
     errs = check_kernels(torch, np, kern, main)
     errs.update(check_compress_kernels(torch, np, kern, main))
-    times = time_kernels(torch, kern, main)
-    time_unshuffle_hook(np, ops)
+    times, dev_ms = time_kernels(torch, kern, main)
+    time_unshuffle_hook(torch, np, kern, ops)
+    time_launch_path(torch, kern, _build)
     del main
     torch.cuda.empty_cache()
 
@@ -1010,14 +1397,17 @@ def main() -> int:
     for name in REPLACES:
         ms, plain_ms, lib_ms, bound_ms = times[name]
         by_path = {path: counts[name] for path, counts in paths.items()}
-        rows.append({"name": name, "route": "cuda",
-                     "source": f"src/repro_torch/kernels/csrc/{name}.cu",
-                     "replaces": REPLACES[name],
-                     "launches": sum(by_path.values()),
-                     "launches_by_path": by_path,
-                     "max_abs_err": errs[name], "ms": ms, "plain_ms": plain_ms,
-                     "bound_ms": bound_ms, "bound_by": "bytes",
-                     "library_ms": lib_ms})
+        row = {"name": name, "route": "cuda",
+               "source": f"src/repro_torch/kernels/csrc/{name}.cu",
+               "replaces": REPLACES[name],
+               "launches": sum(by_path.values()),
+               "launches_by_path": by_path,
+               "max_abs_err": errs[name], "ms": ms[0], "ms_min_max": ms[1:],
+               "plain_ms": plain_ms[0], "bound_ms": bound_ms, "bound_by": "bytes",
+               "library_ms": lib_ms[0], "library_ms_min_max": lib_ms[1:]}
+        if name in dev_ms:
+            row["device_ms"], row["library_device_ms"] = dev_ms[name]
+        rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

@@ -11,6 +11,7 @@ Nothing here runs at import time.
 
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import hashlib
 import os
@@ -19,7 +20,9 @@ import subprocess
 import threading
 import time
 from pathlib import Path
-from typing import Dict, Iterable
+from typing import Dict, Iterable, Tuple
+
+import torch
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -30,6 +33,7 @@ FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIBS: Dict[str, ctypes.CDLL] = {}
+_FUNCS: Dict[Tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def nvcc() -> str:
@@ -97,11 +101,28 @@ def load(name: str) -> ctypes.CDLL:
 
 def function(name: str, symbol: str, argtypes) -> ctypes._CFuncPtr:
     """C entry point ``symbol`` of ``csrc/<name>.cu``: returns an int (a
-    CUDA error code) and takes ``argtypes``."""
-    fn = getattr(load(name), symbol)
-    fn.restype = ctypes.c_int
-    fn.argtypes = argtypes
+    CUDA error code) and takes ``argtypes``. Loaded and typed once per
+    ``(name, symbol)``; later calls are one dict lookup, without the lock."""
+    key = (name, symbol)
+    fn = _FUNCS.get(key)
+    if fn is None:
+        lib = load(name)  # takes the lock itself
+        with _LOCK:
+            fn = _FUNCS.get(key)
+            if fn is None:
+                fn = getattr(lib, symbol)
+                fn.restype = ctypes.c_int
+                fn.argtypes = argtypes
+                _FUNCS[key] = fn
     return fn
+
+
+def device_scope(t: torch.Tensor):
+    """A context that makes ``t``'s card current: a no-op when it already
+    is, else ``torch.cuda.device``."""
+    if t.device.index is None or t.device.index == torch.cuda.current_device():
+        return contextlib.nullcontext()
+    return torch.cuda.device(t.device)
 
 
 def check(err: int, what: str) -> None:

@@ -10,7 +10,7 @@ PyTorch (as the reference's ``jax.lax.top_k`` is outside Pallas), then
 
 from __future__ import annotations
 
-from typing import Any, Tuple
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -82,22 +82,36 @@ def unshuffle(planes: torch.Tensor) -> torch.Tensor:
     return _route(planes, _unshuffle)(planes)
 
 
-def unshuffle_host(planes: np.ndarray, *, device: Any = "cuda") -> np.ndarray:
+def unshuffle_host(planes: np.ndarray, *, device: Any = "cuda",
+                   out: Optional[np.ndarray] = None) -> np.ndarray:
     """The frame-decode hook (``lake.compression.set_unshuffle_kernel``):
-    numpy ``(itemsize, n)`` planes in, numpy ``(n, itemsize)`` items out,
-    transposed on ``device``.
+    numpy ``(itemsize, n)`` planes in, the ``(n, itemsize)`` items out,
+    transposed on ``device``. With ``out`` (a writable ``(n, itemsize)``
+    uint8 array) the items land there and ``out`` is returned; without it,
+    in a new array.
 
-    The planes go through pinned memory to the card and back; the only
-    synchronisation is the copy back, so decode-pool threads may call this
-    concurrently.
+    On a card the planes go up in one transfer straight from their pageable
+    buffer (read-only, as decoded), the register variant transposes a frame
+    of any length, and the items come down in one transfer straight into
+    ``out``. On an H100 host both transfers beat staging through pinned
+    memory (``PERF.md``). The copy down is synchronous, so decode-pool
+    threads may call this concurrently.
     """
     dev = torch.device(device)
-    cuda = dev.type == "cuda"
-    src = torch.empty(planes.shape, dtype=torch.uint8, pin_memory=cuda)
-    src.numpy()[...] = planes
-    out = unshuffle(src.to(dev, non_blocking=True))
-    if not cuda:
-        return out.numpy()
-    host = torch.empty(out.shape, dtype=torch.uint8, pin_memory=True)
-    host.copy_(out)
-    return host.numpy()
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"unshuffle hook bound to {dev}, but "
+                           f"torch.cuda.is_available() is false")
+    itemsize, n = planes.shape
+    if out is None:
+        out = np.empty((n, itemsize), dtype=np.uint8)
+    elif (out.shape != (n, itemsize) or out.dtype != np.uint8
+          or not out.flags.writeable):
+        raise ValueError(f"unshuffle_host wants a writable ({n}, {itemsize}) "
+                         f"uint8 out, got {out.shape} {out.dtype}")
+    rows = torch.empty((itemsize, n), dtype=torch.uint8, device=dev)
+    if dev.type == "cuda":
+        _unshuffle.upload_planes(planes, rows)
+    else:
+        rows.numpy()[...] = planes  # torch wraps no read-only array
+    torch.from_numpy(out).copy_(unshuffle(rows))
+    return out

@@ -176,20 +176,23 @@ except ImportError:  # pragma: no cover - container lacks lz4
 # -- byte shuffle ------------------------------------------------------------
 
 # Optional accelerator for the unshuffle transpose (decode hot path). The
-# hook takes the (itemsize, n) uint8 plane matrix and returns the
-# (n, itemsize) item matrix as anything np.asarray accepts — installed by a
-# DeltaTensorStore built for a CUDA device (repro_torch.kernels.unshuffle),
-# absent everywhere else so the lake never imports torch just to decode.
-_UNSHUFFLE_KERNEL: Optional[Callable[[np.ndarray], np.ndarray]] = None
+# hook is called as fn(planes, out=items): it takes the (itemsize, n) uint8
+# plane matrix and writes the (n, itemsize) item matrix into ``items``, a
+# writable view of the decoded buffer — installed by a DeltaTensorStore
+# built for a CUDA device (repro_torch.kernels.ops.unshuffle_host), absent
+# everywhere else so the lake never imports torch just to decode.
+UnshuffleKernel = Callable[..., Any]
+_UNSHUFFLE_KERNEL: Optional[UnshuffleKernel] = None
 
 
-def set_unshuffle_kernel(fn: Optional[Callable[[np.ndarray], np.ndarray]]) -> None:
-    """Install (or clear, with None) the unshuffle plane-transpose kernel."""
+def set_unshuffle_kernel(fn: Optional[UnshuffleKernel]) -> None:
+    """Install (or clear, with None) the unshuffle plane-transpose kernel,
+    called as ``fn(planes, out=items)``."""
     global _UNSHUFFLE_KERNEL
     _UNSHUFFLE_KERNEL = fn
 
 
-def get_unshuffle_kernel() -> Optional[Callable[[np.ndarray], np.ndarray]]:
+def get_unshuffle_kernel() -> Optional[UnshuffleKernel]:
     return _UNSHUFFLE_KERNEL
 
 
@@ -220,7 +223,7 @@ def byte_unshuffle(raw: Buffer, itemsize: int) -> Buffer:
     buffer (returned as a memoryview — zero-copy for downstream
     ``np.frombuffer`` consumers). When an accelerator kernel is installed
     via :func:`set_unshuffle_kernel` the transpose runs there instead of
-    numpy.
+    numpy and writes straight into that buffer.
     """
     itemsize = int(itemsize)
     if itemsize <= 1 or len(raw) < 2 * itemsize:
@@ -229,11 +232,12 @@ def byte_unshuffle(raw: Buffer, itemsize: int) -> Buffer:
     n = (len(a) // itemsize) * itemsize
     out = np.empty(len(a), dtype=np.uint8)
     planes = a[:n].reshape(itemsize, -1)
+    items = out[:n].reshape(-1, itemsize)
     kern = _UNSHUFFLE_KERNEL
     if kern is not None:
-        out[:n] = np.asarray(kern(planes), dtype=np.uint8).reshape(-1)
+        kern(planes, out=items)
     else:
-        out[:n].reshape(-1, itemsize)[...] = planes.T
+        items[...] = planes.T
     out[n:] = a[n:]
     return out.data
 
