@@ -61,8 +61,28 @@ Phases, each of which exits non-zero on failure:
    to ``decoded + residual == e``, the top-k norm order and the wire-ratio
    formula. ``block_norms``, ``block_gather`` and ``block_scatter`` must
    have launched on this path;
-6. print the card's name and power limit, one JSON line of per-kernel
-   numbers, and as the last line ``{"ok": true, "device": {...}}``.
+6. serving: granite-3-8b (``src/repro/configs/granite_3_8b.py``) at its
+   published widths, bf16, depth cut to L = 4 of 40 layers (``--layers``;
+   the save runs through the host's zlib within the run's time limit), with
+   random weights from a seeded ``torch.Generator`` on the card. They are
+   saved with ``store.models("granite-3-8b").save`` under ``zlib:1+shuffle``
+   on a local-filesystem store under ``build/``, then cold-loaded onto the
+   card with ``ModelRepo.load(template, device="cuda")``, the counted path:
+   ``block_gather`` and ``unshuffle`` (its register variant, itemsize 2)
+   must launch, and every leaf must equal the saved one byte for byte. The
+   two kernels are then held to their plain versions at every shape the
+   load gave them, and timed at the largest. One request's prefill logits
+   (32 tokens) are held to the port's own forward on the CPU (max|d| <=
+   2e-2 max|logits|; equal argmax wherever the CPU's top-1 margin exceeds
+   2 max|d|); that request through ``ServeEngine`` (1 slot) must equal the
+   offline prefill + decode loop token for token; and 8 requests (prompts
+   of 16-128 tokens) through 4 slots must each finish with 32 tokens (how
+   many agree with their solo runs is printed, not gated). Prints save and
+   cold-load seconds and GB/s, a profiled load's idle share, prefill ms,
+   decode tokens/s at 4 slots and peak device memory;
+7. print the card's name and power limit, one JSON line of per-kernel
+   numbers (launches per path: read, stream, compress, serve), and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of jax or of the JAX package ``repro``.
 """
@@ -103,8 +123,8 @@ def parse_args():
     p.add_argument("--images", type=int, default=256,
                    help="FFHQ-like images of 3x1024x1024 f32 (default 256)")
     p.add_argument("--layers", type=int, default=4,
-                   help="granite-3-8b layers in the gradient tree (default 4 "
-                        "of 40; widths are never cut)")
+                   help="granite-3-8b layers in the gradient tree and the "
+                        "served model (default 4 of 40; widths are never cut)")
     return p.parse_args()
 
 
@@ -1011,7 +1031,7 @@ def profile_call(torch, name, fn):
         fn()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    busy_us = {}
+    busy_us, n_ops = {}, 0
     for e in prof.key_averages():
         # device-side rows only (kernels, memcpys, memsets): an operator's
         # row repeats the device time of what it launched
@@ -1022,13 +1042,15 @@ def profile_call(torch, name, fn):
             us = getattr(e, "self_cuda_time_total", 0)
         if us:
             busy_us[e.key] = us
+            n_ops += e.count
     total_ms = sum(busy_us.values()) / 1e3
     top = sorted(busy_us.items(), key=lambda kv: -kv[1])[:6]
     if total_ms == 0:
         log(f"[profile] {name}: the profiler saw no device time (not measured)")
         return busy_us
     log(f"[profile] {name}: wall {wall!r} s (profiled), device busy "
-        f"{total_ms!r} ms, idle share {1 - total_ms / 1e3 / wall!r}; top: "
+        f"{total_ms!r} ms in {n_ops} device operations, idle share "
+        f"{1 - total_ms / 1e3 / wall!r}; top: "
         + "; ".join(f"{k[:100]} {v / 1e3:.3f} ms" for k, v in top))
     return busy_us
 
@@ -1324,6 +1346,330 @@ def compress_path(torch, np, layers):
     return counts
 
 
+# -- phase 6: serving ------------------------------------------------------------
+
+SERVE_PROMPT = 32       # tokens of the request held to the CPU's logits
+SERVE_REQUESTS, SERVE_SLOTS, SERVE_NEW, SERVE_MAX_LEN = 8, 4, 32, 256
+LOGIT_RTOL = 2e-2       # bf16 on the card against bf16 on the CPU
+CPU_BUDGET_S = 120.0
+SERVE_COMPRESSION = "zlib:1+shuffle"
+
+
+def serve_config(layers):
+    """granite-3-8b at its published widths (src/repro/configs/
+    granite_3_8b.py: d_model 4096, 32 heads, 8 KV heads, head_dim 128, d_ff
+    12800, vocab 49155, untied, bf16), depth cut to ``layers``."""
+    import dataclasses
+    from repro_torch.models import get_arch
+    return dataclasses.replace(get_arch("granite-3-8b"), n_layers=layers)
+
+
+def recording_launches(torch, mods):
+    """Wrap each module's ``launch`` to record its tensor operands' shapes
+    and dtypes (and the other arguments); returns (records, undo). The
+    launches and their counts stay the kernels' own."""
+    records = {mod.__name__.rsplit(".", 1)[-1]: [] for mod in mods}
+    saved = [(mod, mod.launch) for mod in mods]
+
+    def spy(name, fn):
+        def launch(*args, **kw):
+            records[name].append(tuple(
+                (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
+                for a in args))
+            return fn(*args, **kw)
+        return launch
+
+    for mod, fn in saved:
+        mod.launch = spy(mod.__name__.rsplit(".", 1)[-1], fn)
+
+    def undo():
+        for mod, fn in saved:
+            mod.launch = fn
+    return records, undo
+
+
+def check_serve_kernels(torch, kern, records):
+    """block_gather and unshuffle against their plain versions, byte for
+    byte, at every distinct shape the load gave them (random operands of
+    that shape and dtype, a random permutation of ids); returns the
+    distinct (shape, dtype, K, tile) of block_gather and (itemsize, n) of
+    unshuffle."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(6)
+    gathers = sorted({(x[0], x[1], ids[0][0], bs)
+                      for x, ids, bs in records["block_gather"]})
+    for shape, dtype, k, bs in gathers:
+        # finite values only (bf16 bit patterns of normal numbers)
+        x = torch.randn(shape, generator=g, device=dev).to(dtype)
+        ids = torch.randperm(shape[0], generator=g, device=dev)[:k].to(torch.int32)
+        got = kern.block_gather.launch(x, ids, bs)
+        want = kern.block_gather.plain(x, ids, bs)
+        if not same_bytes(got, want):
+            fail(f"block_gather at the serve shape {shape} {dtype} K={k} {bs}: "
+                 f"max diff {max_abs_err(got, want)}")
+        del x, got, want
+    frames = sorted({planes[0] for (planes,) in records["unshuffle"]})
+    for shape in frames:
+        planes = torch.randint(0, 256, shape, generator=g, device=dev,
+                               dtype=torch.uint8)
+        got = kern.unshuffle.launch(planes)
+        want = kern.unshuffle.plain(planes)
+        if not torch.equal(got, want):
+            fail(f"unshuffle at the serve frame {shape}: max diff "
+                 f"{max_abs_err(got, want)}")
+        del planes, got, want
+    torch.cuda.synchronize()
+    log(f"[check] serve shapes against the plain versions, max diff 0: "
+        f"block_gather {len(gathers)} shapes "
+        f"{[(s, str(d), k, b) for s, d, k, b in gathers]}; unshuffle "
+        f"{len(frames)} frame shapes (itemsize, n) from {frames[0]} to "
+        f"{frames[-1]}")
+    return gathers, frames
+
+
+def time_serve_kernels(torch, kern, gathers, frames):
+    """The serve path's largest block_gather and unshuffle, timed beside
+    their library calls and bounds; returns {kernel: (ms, library_ms,
+    bound_ms, shape)}, each time a (median, min, max) triple."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(7)
+    out = {}
+    shape, dtype, k, bs = max(gathers, key=lambda s: s[0][0] * s[0][1])
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    ids = torch.randperm(shape[0], generator=g, device=dev)[:k].to(torch.int32)
+    ids64 = ids.to(torch.int64)
+    nbytes = k * bs[1] * x.element_size()
+    bound = (2 * nbytes + 4 * k) / HBM_BYTES_PER_S * 1e3
+    k_t, lib_t = time_pair_ms(lambda: kern.block_gather.launch(x, ids, bs),
+                              lambda: x.index_select(0, ids64), 10)
+    out["block_gather"] = (k_t, lib_t, bound, f"K={k} {bs} {dtype}")
+    del x
+    shape = frames[-1]
+    planes = torch.randint(0, 256, shape, generator=g, device=dev,
+                           dtype=torch.uint8)
+    bound = 2 * planes.numel() / HBM_BYTES_PER_S * 1e3
+    k_t, lib_t = time_pair_ms(lambda: kern.unshuffle.launch(planes),
+                              lambda: planes.t().contiguous(), 10)
+    out["unshuffle"] = (k_t, lib_t, bound, f"planes {shape}")
+    del planes
+    for name, (ms, lib, bound, what) in out.items():
+        log(f"[time] {name} at the serve path's largest shape ({what}): kernel "
+            f"{spread(ms)}, library {spread(lib)}, bound {bound!r} ms (bytes)")
+    return out
+
+
+def greedy(torch, tt, params, cfg, prompt, n_new, max_len):
+    """prefill + decode_step on one lane, argmax each step: the offline
+    reference the engine is held to. Returns (tokens, prefill ms)."""
+    dev = torch.device("cuda")
+    caches = tt.init_caches(cfg, 1, max_len, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    logits, caches, _ = tt.prefill(params, cfg, torch.as_tensor(
+        prompt[None].astype("int64")).to(dev), caches)
+    out = [int(logits[0, -1].argmax())]
+    prefill_ms = (time.perf_counter() - t0) * 1e3
+    while len(out) < n_new:
+        logits, caches, _ = tt.decode_step(
+            params, cfg, torch.tensor([[out[-1]]], device=dev), caches)
+        out.append(int(logits[0, 0].argmax()))
+    return out, prefill_ms
+
+
+def check_prefill_on_cpu(torch, tt, params, cfg, prompt):
+    """One request's prefill logits on the card against the port's own
+    forward on the CPU with the same bf16 weights."""
+    from repro_torch.tree import tree_map
+    dev = torch.device("cuda")
+    tok = torch.as_tensor(prompt[None].astype("int64"))
+    got, _, _ = tt.prefill(params, cfg, tok.to(dev),
+                           tt.init_caches(cfg, 1, SERVE_MAX_LEN, device=dev))
+    got = got[0].cpu()
+    t0 = time.perf_counter()
+    cpu_params = tree_map(lambda t: t.cpu(), params)
+    want, _, _ = tt.prefill(cpu_params, cfg, tok,
+                            tt.init_caches(cfg, 1, SERVE_MAX_LEN, device="cpu"))
+    cpu_s = time.perf_counter() - t0
+    want = want[0]
+    del cpu_params
+    if cpu_s > CPU_BUDGET_S:
+        fail(f"the CPU forward took {cpu_s!r} s, over its {CPU_BUDGET_S} s budget")
+    if not bool(torch.isfinite(got).all()):
+        fail("non-finite prefill logits on the card")
+    diff = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    top2 = want.topk(2, dim=-1).values
+    margin = top2[:, 0] - top2[:, 1]
+    decided = margin > 2 * diff
+    agree = got.argmax(-1)[decided] == want.argmax(-1)[decided]
+    log(f"[verify] prefill logits ({SERVE_PROMPT} tokens) against the CPU "
+        f"({cpu_s!r} s): max|d| {diff!r}, max|logits_cpu| {scale!r}, ratio "
+        f"{diff / scale!r} (limit {LOGIT_RTOL}); argmax agrees on "
+        f"{int(agree.sum())} of {int(decided.sum())} positions whose top-1 "
+        f"margin exceeds 2 max|d| ({SERVE_PROMPT} positions)")
+    if diff > LOGIT_RTOL * scale:
+        fail(f"prefill logits differ from the CPU's by {diff!r} > "
+             f"{LOGIT_RTOL} * {scale!r}")
+    if not bool(agree.all()):
+        fail("the prefill argmax differs from the CPU's where the margin decides")
+
+
+def serve_path(torch, np, layers, workdir):
+    """6: granite-3-8b weights saved to the store, cold-loaded onto the card
+    through ModelRepo.load (the counted path: block_gather and unshuffle),
+    then served through ServeEngine. Returns the load's launches and the
+    timings of time_serve_kernels."""
+    from repro_torch import kernels as kern
+    from repro_torch.core import DeltaTensorStore
+    from repro_torch.lake import LocalFSObjectStore
+    from repro_torch.models import transformer as tt
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.tree import leaves
+
+    dev = torch.device("cuda")
+    cfg = serve_config(layers)
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tt.init_params(cfg, gen, device=dev)
+    n_params = tt.param_count(params)
+    tensor_bytes = sum(t.numel() * t.element_size() for _, t in leaves(params))
+    log(f"[serve] {cfg.name} at published widths (d_model {cfg.d_model}, "
+        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, "
+        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied, {cfg.dtype}); "
+        f"depth cut to L = {layers} of 40 layers (the run's time limit: the "
+        f"save goes through the host's zlib): {len(leaves(params))} leaves, "
+        f"{n_params} parameters, {tensor_bytes} B; weights random from "
+        f"torch.Generator seed 0")
+
+    store = DeltaTensorStore(LocalFSObjectStore(str(workdir)), "serve",
+                             compression=SERVE_COMPRESSION)
+    t0 = time.perf_counter()
+    with store.models(cfg.name) as repo:
+        repo.save(params)
+        stored = repo.stats()["stored_bytes"]
+    save_s = time.perf_counter() - t0
+    log(f"[serve] save ({SERVE_COMPRESSION}, LocalFSObjectStore): {save_s!r} "
+        f"s, {tensor_bytes / save_s / 1e9!r} GB/s of tensor bytes, stored "
+        f"{stored} B ({stored / tensor_bytes!r} of the tensor bytes)")
+
+    # the counted path: a cold load onto the card
+    template = tt.init_params(cfg, device="meta")
+    repo = store.models(cfg.name)
+    records, undo = recording_launches(torch, (kern.block_gather, kern.unshuffle))
+    torch.cuda.synchronize()
+    store.io.stats.reset()
+    reset_counts(kern)
+    try:
+        t0 = time.perf_counter()
+        loaded = repo.load(template, device="cuda")
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+    finally:
+        undo()
+    counts = kern.launch_counts()
+    variants = variant_counts(kern)
+    itemsizes = sorted({planes[0][0] for (planes,) in records["unshuffle"]})
+    log(f"[serve] cold load: {load_s!r} s, {tensor_bytes / load_s / 1e9!r} GB/s "
+        f"of tensor bytes, {stored / load_s / 1e9!r} GB/s of stored bytes; "
+        f"io_stats {json.dumps(store.io_stats(), sort_keys=True, default=str)}")
+    log(f"[serve] launches during the load: {json.dumps(counts)}; by variant "
+        f"{json.dumps(variants)}; unshuffle itemsizes {itemsizes}")
+    for name in ("block_gather", "unshuffle"):
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the serve path")
+    if itemsizes != [2] or variants["unshuffle"]["register"] != counts["unshuffle"]:
+        fail("the serve path's unshuffle launches were not all the register "
+             "variant at itemsize 2")
+    for (name, want), (_, got) in zip(leaves(params), leaves(loaded)):
+        if not (got.is_cuda and same_bytes(got, want)):
+            fail(f"loaded leaf {name} differs from the saved one")
+    log(f"[verify] every loaded leaf ({len(leaves(loaded))}) is on the card "
+        f"and byte-identical to the saved one")
+    del params
+    gathers, frames = check_serve_kernels(torch, kern, records)
+    times = time_serve_kernels(torch, kern, gathers, frames)
+    profile_call(torch, "cold load", lambda: repo.load(template, device="cuda"))
+    torch.cuda.empty_cache()
+
+    rng = np.random.default_rng(0)
+    prompt = rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
+    check_prefill_on_cpu(torch, tt, loaded, cfg, prompt)
+
+    # one request alone through the engine against the offline loop
+    solo, _ = greedy(torch, tt, loaded, cfg, prompt, SERVE_NEW, SERVE_MAX_LEN)
+    with ServeEngine(loaded, cfg, n_slots=1, max_len=SERVE_MAX_LEN) as eng:
+        req = Request(rid=0, prompt=prompt, max_new_tokens=SERVE_NEW)
+        eng.submit(req)
+        eng.run_until_drained()
+    if req.out_tokens != solo:
+        fail(f"the engine's tokens differ from the offline decode: "
+             f"{req.out_tokens} vs {solo}")
+    log(f"[verify] one request through ServeEngine (1 slot) equals the offline "
+        f"prefill + decode_step loop, {SERVE_NEW} tokens")
+
+    # continuous batching: 8 requests through 4 slots
+    lens = rng.integers(16, 129, SERVE_REQUESTS)
+    prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
+               for n in lens]
+    solos, prefill_ms = zip(*[greedy(torch, tt, loaded, cfg, p, SERVE_NEW,
+                                     SERVE_MAX_LEN) for p in prompts])
+    eng = ServeEngine(loaded, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+    reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
+            for i, p in enumerate(prompts)]
+    for r in reqs:
+        eng.submit(r)
+    decode_s, decode_tokens, steps = 0.0, 0, 0
+    torch.cuda.synchronize()
+    t_run = time.perf_counter()
+    while any(not r.done for r in reqs):
+        queued = eng.queue.qsize()
+        t0 = time.perf_counter()
+        active = eng.step()
+        dt = time.perf_counter() - t0
+        steps += 1
+        if eng.queue.qsize() == queued and active == SERVE_SLOTS:
+            decode_s += dt    # a step that admitted nothing: decode alone
+            decode_tokens += active
+        if steps > 10_000:
+            fail("the batched run did not drain")
+    run_s = time.perf_counter() - t_run
+    eng.close()
+    for r in reqs:
+        if not r.done or len(r.out_tokens) != SERVE_NEW:
+            fail(f"request {r.rid} ended with {len(r.out_tokens)} tokens")
+    agree = [int(sum(a == b for a, b in zip(r.out_tokens, s)))
+             for r, s in zip(reqs, solos)]
+    peak = torch.cuda.max_memory_allocated()
+    log(f"[serve] batched run: {SERVE_REQUESTS} requests (prompts "
+        f"{lens.tolist()} tokens), {SERVE_SLOTS} slots, {SERVE_NEW} new tokens "
+        f"each, max_len {SERVE_MAX_LEN}: {run_s!r} s, {steps} engine steps, "
+        f"{SERVE_REQUESTS * SERVE_NEW / run_s!r} tokens/s with prefills; every "
+        f"request finished with {SERVE_NEW} tokens")
+    log(f"[serve] tokens agreeing with each request's solo run (information, "
+        f"not a gate: batch-{SERVE_SLOTS} bf16 matmuls may round otherwise): "
+        f"{agree} of {SERVE_NEW}")
+    log(f"[serve] prefill ms per request (one lane, prompts {lens.tolist()}): "
+        f"{[round(m, 3) for m in prefill_ms]}; decode at {SERVE_SLOTS} slots: "
+        f"{decode_tokens} tokens in {decode_s!r} s, {decode_tokens / decode_s!r} "
+        f"tokens/s ({decode_s / max(1, decode_tokens) * SERVE_SLOTS * 1e3!r} ms "
+        f"a step); peak device memory {peak} B")
+    # where the time goes: one prefill (the longest prompt) and one decode
+    # step at 4 slots under torch.profiler, after the measured runs
+    longest = prompts[int(lens.argmax())]
+    profile_call(torch, f"prefill of one {len(longest)}-token request",
+                 lambda: greedy(torch, tt, loaded, cfg, longest, 1,
+                                SERVE_MAX_LEN))
+    with ServeEngine(loaded, cfg, n_slots=SERVE_SLOTS,
+                     max_len=SERVE_MAX_LEN) as eng:
+        for i, p in enumerate(prompts[:SERVE_SLOTS]):
+            eng.submit(Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW))
+        eng.step()  # admits every slot
+        eng.step()
+        profile_call(torch, f"decode step at {SERVE_SLOTS} slots", eng.step)
+    repo.close()
+    return counts, times
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1391,8 +1737,16 @@ def main() -> int:
 
     # 5(b) gradient compression at granite-3-8b widths
     paths["compress"] = compress_path(torch, np, args.layers)
+    torch.cuda.empty_cache()
 
-    # 6. report
+    # 6. serving granite-3-8b from the store
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_", dir=workroot))
+    try:
+        paths["serve"], serve_times = serve_path(torch, np, args.layers, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 7. report
     rows = []
     for name in REPLACES:
         ms, plain_ms, lib_ms, bound_ms = times[name]
@@ -1407,6 +1761,10 @@ def main() -> int:
                "library_ms": lib_ms[0], "library_ms_min_max": lib_ms[1:]}
         if name in dev_ms:
             row["device_ms"], row["library_device_ms"] = dev_ms[name]
+        if name in serve_times:
+            s_ms, s_lib, s_bound, s_what = serve_times[name]
+            row.update(serve_shape=s_what, serve_ms=s_ms[0],
+                       serve_library_ms=s_lib[0], serve_bound_ms=s_bound)
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

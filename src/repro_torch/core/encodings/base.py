@@ -123,6 +123,14 @@ class RowGroup:
     skip_columns: Tuple[str, ...] = ()
 
 
+def dtype_name(dtype) -> str:
+    """The dtype's name as headers record it: ``"bfloat16"`` for
+    :data:`BF16_STAGING`, so that readers with ml_dtypes (the JAX package
+    among them) read such a tensor back as bfloat16, not uint16."""
+    dtype = np.dtype(dtype)
+    return (dtype.metadata or {}).get("torch_dtype", str(dtype))
+
+
 def make_header(shape: Sequence[int], dtype, **extra: Any) -> RowGroup:
     """Uniform 1-row header group each codec emits alongside its chunks.
 
@@ -133,7 +141,7 @@ def make_header(shape: Sequence[int], dtype, **extra: Any) -> RowGroup:
     cols: Dict[str, Any] = {
         "__header__": np.asarray([1], dtype=np.int8),
         "dense_shape": [np.asarray(shape, dtype=np.int64)],
-        "dtype": [str(np.dtype(dtype))],
+        "dtype": [dtype_name(dtype)],
     }
     for k, v in extra.items():
         if isinstance(v, np.ndarray):

@@ -16,9 +16,9 @@ from typing import Any, Dict, List, Tuple
 
 import numpy as np
 
-from .base import (Codec, RowGroup, SliceSpec, as_dense, first_scalar,
-                   header_dtype, header_shape, make_header, normalize_slices,
-                   register, slice_shape, split_groups)
+from .base import (Codec, RowGroup, SliceSpec, as_dense, dtype_name,
+                   first_scalar, header_dtype, header_shape, make_header,
+                   normalize_slices, register, slice_shape, split_groups)
 
 
 class FTSFCodec(Codec):
@@ -46,7 +46,7 @@ class FTSFCodec(Codec):
             "dim_count": np.full(n_chunks, n, dtype=np.int32),
             "dimensions": [np.asarray(x.shape, dtype=np.int64)] * n_chunks,
             "chunk_dim_count": np.full(n_chunks, chunk_dims, dtype=np.int32),
-            "dtype": [str(x.dtype)] * n_chunks,
+            "dtype": [dtype_name(x.dtype)] * n_chunks,
         }
         del chunk_nbytes
         header = make_header(x.shape, x.dtype, chunk_dim_count=chunk_dims,

@@ -869,6 +869,19 @@ class DeltaTensorStore:
                             compression=compression,
                             commit_retries=commit_retries, clock=clock)
 
+    def models(self, prefix: str, *, version: VersionArg = None):
+        """A :class:`~repro_torch.serve.repo.ModelRepo` handle over ``prefix``.
+
+        The serving-weights API: ``repo.save(params)`` persists a param
+        tree (one tensor per leaf, one atomic commit),
+        ``repo.load(template)`` reads it onto the store's device through
+        one merged fetch plan, ``repo.open_variant(name)`` stores
+        fine-tunes as delta variants of this repo's leaves. The repo is
+        snapshot-pinned and lease-holding like :class:`TensorRef`.
+        """
+        from ..serve.repo import ModelRepo  # serve sits above core
+        return ModelRepo(self, prefix, version=version)
+
     # -- catalog conveniences -------------------------------------------------
 
     def list_tensors(self, version: VersionArg = None) -> List[Tuple[str, str]]:

@@ -53,8 +53,8 @@ from typing import Any, Dict, List, Optional, Tuple, Union
 import numpy as np
 
 from ..core.batch import DEFAULT_COMMIT_RETRIES, _tensor_paths
-from ..core.encodings.base import (first_scalar, header_dtype, header_shape,
-                                   make_header)
+from ..core.encodings.base import (dtype_name, first_scalar, header_dtype,
+                                   header_shape, make_header)
 from ..core.store import TARGET_FILE_BYTES, DeltaTensorStore
 from ..lake.compression import CompressionSpec, parse_compression
 from ..lake.log import CommitConflict, Snapshot
@@ -236,7 +236,7 @@ class IngestWriter:
             "dim_count": np.full(k, n, dtype=np.int32),
             "dimensions": [np.asarray(shape, dtype=np.int64)] * k,
             "chunk_dim_count": np.full(k, n - 1, dtype=np.int32),
-            "dtype": [str(self._dtype)] * k,
+            "dtype": [dtype_name(self._dtype)] * k,
         }
         adds = self.table.append_split(
             cols, target_bytes=self.target, guard=guard,

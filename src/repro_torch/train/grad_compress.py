@@ -12,11 +12,12 @@ plus their coordinates:
   g_hat = mean_p decode_p            (mean of the compressed payloads)
 
 Gradient trees are nested dicts, lists and tuples of tensors whose leaves
-carry a leading ``pod`` dimension; dict keys are visited in sorted order, as
-``jax.tree`` flattens them. The pods are a loop over that dimension: each
-pod's leaf is a contiguous 2-D view ``(rows, last dim)``, and the kernels
-mask its ragged edge, so no padded copy is made (the reference pads with
-``jnp.pad``; the bytes are the same).
+carry a leading ``pod`` dimension, flattened by :mod:`repro_torch.tree`
+(dict keys in sorted order, as ``jax.tree`` flattens them). The pods are a
+loop over that dimension: each pod's leaf is a contiguous 2-D view
+``(rows, last dim)``, and the kernels mask its ragged edge, so no padded
+copy is made (the reference pads with ``jnp.pad``; the bytes are the
+same).
 
 This is the single-process form (the reference's ``replicate_spec=None``):
 every pod lives in this process, so the decode of all pods' payloads is the
@@ -27,13 +28,14 @@ across processes is not ported yet.
 from __future__ import annotations
 
 import math
-from typing import Any, Callable, Dict, List, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from ..kernels import ops
 from ..lake.device import to_torch
+from ..tree import leaves as _leaves, rebuild as _rebuild, tree_map
 
 DEFAULT_BLOCK = (8, 128)
 
@@ -42,39 +44,6 @@ class CompressState(NamedTuple):
     """Error-feedback state: residuals shaped like the grads (pod dim first)."""
 
     residual: Any
-
-
-# -- small pytree helpers (dicts in sorted key order, lists, tuples) ----------
-
-def _leaves(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
-    """``(path, leaf)`` pairs of ``tree``; paths join keys with ``/``."""
-    if isinstance(tree, dict):
-        out: List[Tuple[str, Any]] = []
-        for key in sorted(tree):
-            out += _leaves(tree[key], f"{path}/{key}" if path else str(key))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, sub in enumerate(tree):
-            out += _leaves(sub, f"{path}/{i}" if path else str(i))
-        return out
-    return [(path, tree)]
-
-
-def _rebuild(tree: Any, leaves) -> Any:
-    """``tree``'s structure with its leaves taken, in order, from the
-    iterator ``leaves``."""
-    if isinstance(tree, dict):
-        return {key: _rebuild(tree[key], leaves) for key in sorted(tree)}
-    if isinstance(tree, (list, tuple)):
-        items = [_rebuild(sub, leaves) for sub in tree]
-        return items if isinstance(tree, list) else tuple(items)
-    return next(leaves)
-
-
-def tree_map(fn: Callable[[Any], Any], tree: Any) -> Any:
-    """``tree`` with ``fn`` applied to every leaf."""
-    return _rebuild(tree, iter([fn(leaf) for _, leaf in _leaves(tree)]))
 
 
 # -- compression ---------------------------------------------------------------

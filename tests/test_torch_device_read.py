@@ -381,6 +381,8 @@ def test_import_without_jax_repro_or_ml_dtypes(tmp_path):
         import repro_torch.core.device, repro_torch.train.grad_compress
         import repro_torch.data.stream, repro_torch.data.pipeline
         import repro_torch.data.ingest
+        import repro_torch.models, repro_torch.serve, repro_torch.tree
+        import repro_torch.examples.serve_lm
         from repro_torch.core import DeltaTensorStore
         from repro_torch.lake import LocalFSObjectStore
         store = DeltaTensorStore(LocalFSObjectStore({str(tmp_path)!r}), "t",
