@@ -80,9 +80,30 @@ Phases, each of which exits non-zero on failure:
    many agree with their solo runs is printed, not gated). Prints save and
    cold-load seconds and GB/s, a profiled load's idle share, prefill ms,
    decode tokens/s at 4 slots and peak device memory;
-7. print the card's name and power limit, one JSON line of per-kernel
-   numbers (launches per path: read, stream, compress, serve), and as the
-   last line ``{"ok": true, "device": {...}}``.
+7. training: granite-3-8b at its published widths, bf16, depth cut to L =
+   4 of 40 (``--layers``), random weights from a seeded generator, batches
+   of 8x256 tokens read through ``FTSFLoader`` from an FTSF token corpus
+   under ``build/``. Step 1 of ``make_train_step`` runs on a 1x16 batch and
+   is held to the same call on the CPU (loss and grad norm within 2e-2
+   relative, 99 % of the params within one bf16 ulp); steps 2-4 are timed
+   (ms, tokens/s, the model-FLOPs share 6 N tokens / step / 989 TFLOP/s)
+   and step 5 profiled. The TrainState is checkpointed with
+   ``DeltaCheckpointer`` on a local store under ``build/`` (the phase fails
+   if the disk lacks 1.5x the state's bytes): ``save_async`` while step 6
+   runs, a save that an injected fault breaks (step 5 must stay the only
+   step), ``restore(device="cuda")`` (``block_gather``; every leaf, the 0-d
+   ones included, byte-identical to the saved state), an incremental save
+   of the restored state that uploads no tensor, step 6 again from the
+   restore (loss within 1e-3 relative of the uninterrupted run's), a slice
+   restore of half of ``params/embed``, and ``prune(keep=1)`` with a
+   vacuum. Then three ``make_compressed_train_step`` steps over 2 pods at
+   ratio 0.05: pods byte-identical, wire ratio below 0.1. ``block_gather``,
+   ``block_norms`` and ``block_scatter`` must have launched in the phase;
+   each is held to its plain version at every shape the phase gave it, and
+   ``block_gather`` timed at the restore's largest;
+8. print the card's name and power limit, one JSON line of per-kernel
+   numbers (launches per path: read, stream, compress, serve, train), and
+   as the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of jax or of the JAX package ``repro``.
 """
@@ -123,8 +144,9 @@ def parse_args():
     p.add_argument("--images", type=int, default=256,
                    help="FFHQ-like images of 3x1024x1024 f32 (default 256)")
     p.add_argument("--layers", type=int, default=4,
-                   help="granite-3-8b layers in the gradient tree and the "
-                        "served model (default 4 of 40; widths are never cut)")
+                   help="granite-3-8b layers in the gradient tree, the served "
+                        "and the trained model (default 4 of 40; widths are "
+                        "never cut)")
     return p.parse_args()
 
 
@@ -1366,8 +1388,9 @@ def serve_config(layers):
 
 def recording_launches(torch, mods):
     """Wrap each module's ``launch`` to record its tensor operands' shapes
-    and dtypes (and the other arguments); returns (records, undo). The
-    launches and their counts stay the kernels' own."""
+    and dtypes, the other arguments, then its keyword arguments as (name,
+    value) pairs; returns (records, undo). The launches and their counts
+    stay the kernels' own."""
     records = {mod.__name__.rsplit(".", 1)[-1]: [] for mod in mods}
     saved = [(mod, mod.launch) for mod in mods]
 
@@ -1375,7 +1398,7 @@ def recording_launches(torch, mods):
         def launch(*args, **kw):
             records[name].append(tuple(
                 (tuple(a.shape), a.dtype) if isinstance(a, torch.Tensor) else a
-                for a in args))
+                for a in args) + tuple(sorted(kw.items())))
             return fn(*args, **kw)
         return launch
 
@@ -1670,6 +1693,400 @@ def serve_path(torch, np, layers, workdir):
     return counts, times
 
 
+# -- phase 7: training -----------------------------------------------------------
+
+TRAIN_B, TRAIN_T = 8, 256        # 2048 tokens a step; the pods split the batch
+TRAIN_SAMPLES = 128              # token rows in the corpus (16 batches)
+SHORT_B, SHORT_T = 1, 16         # step 1's batch, run again on the CPU
+TRAIN_OPT = dict(lr=1e-3, warmup_steps=2, total_steps=100)
+STEP_RTOL = 2e-2                 # loss and grad norm, bf16 card against bf16 CPU
+ULP_SHARE = 0.99                 # share of params within one bf16 ulp of the CPU's
+RESUME_RTOL = 1e-3               # resumed step's loss against the uninterrupted one
+TRAIN_CPU_BUDGET_S = 300.0
+WIRE_LIMIT = 0.1
+PEAK_BF16_FLOPS = 989e12         # H100 SXM, dense bf16 (NVIDIA data sheet)
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each element of ``x`` (f32)."""
+    a = x.float().abs().clamp_min(1e-30)
+    return torch.exp2(torch.floor(torch.log2(a)) - 7)
+
+
+def compare_train_step_on_cpu(torch, step, state, batch, dev):
+    """Step 1 on the card and the same call on a host copy of the state:
+    loss and grad norm within STEP_RTOL, and the share of params within one
+    bf16 ulp of the CPU's at least ULP_SHARE. Returns (state', metrics)."""
+    from repro_torch.tree import leaves, tree_map
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, {k: v.to(dev) for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu_state, cm = step(cpu_state, batch)
+    cpu_s = time.perf_counter() - t0
+    if cpu_s > TRAIN_CPU_BUDGET_S:
+        fail(f"the CPU train step took {cpu_s!r} s, over its "
+             f"{TRAIN_CPU_BUDGET_S} s budget")
+    for k in ("loss", "grad_norm", "lr"):
+        got, want = float(m[k]), float(cm[k])
+        log(f"[verify] train step 1 ({SHORT_B}x{SHORT_T} tokens) {k}: card "
+            f"{got!r}, CPU {want!r}, relative {abs(got - want) / abs(want)!r} "
+            f"(limit {STEP_RTOL})")
+        if not abs(got - want) <= STEP_RTOL * abs(want):
+            fail(f"train step 1 {k} on the card {got!r} differs from the "
+                 f"CPU's {want!r}")
+    within = total = 0
+    worst = 0.0
+    for (name, g), (_, c) in zip(leaves(state.params), leaves(cpu_state.params)):
+        c = c.to(dev)
+        d = (g.float() - c.float()).abs()
+        within += int((d <= bf16_ulp(torch, c)).sum())
+        total += d.numel()
+        worst = max(worst, float(d.max()))
+    share = within / total
+    log(f"[verify] train step 1 params: {within} of {total} within one bf16 "
+        f"ulp of the CPU's, share {share!r} (limit {ULP_SHARE}); max|d| "
+        f"{worst!r}; card {card_ms!r} ms, CPU {cpu_s!r} s")
+    if share < ULP_SHARE:
+        fail(f"only {share!r} of the params after step 1 are within one bf16 "
+             f"ulp of the CPU's")
+    return state, m
+
+
+def check_train_kernels(torch, kern, records):
+    """Each kernel against its plain version at every distinct shape phase 7
+    gave it, on fresh random operands of that shape and dtype: block_gather
+    and block_scatter byte for byte, block_norms exactly on dyadic values."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(9)
+
+    def rand(shape, dtype):
+        if dtype.is_floating_point:
+            return torch.randn(shape, generator=g, device=dev).to(dtype)
+        return torch.randint(-1000, 1000, shape, generator=g, device=dev).to(dtype)
+
+    def ids_for(x_shape, bs, k):
+        n_tiles = -(-x_shape[0] // bs[0]) * -(-x_shape[1] // bs[1])
+        return torch.randperm(n_tiles, generator=g, device=dev)[:k].to(torch.int32)
+
+    done = {}
+    gathers = sorted({(x[0], x[1], ids[0][0], bs)
+                      for x, ids, bs in records["block_gather"]}, key=str)
+    for shape, dtype, k, bs in gathers:
+        x = rand(shape, dtype)
+        ids = ids_for(shape, bs, k)
+        got, want = kern.block_gather.launch(x, ids, bs), kern.block_gather.plain(x, ids, bs)
+        if not same_bytes(got, want):
+            fail(f"block_gather at the train shape {shape} {dtype} K={k} {bs}: "
+                 f"max diff {max_abs_err(got, want)}")
+    done["block_gather"] = len(gathers)
+    norms = sorted({(x[0], x[1], bs) for x, bs in records["block_norms"]}, key=str)
+    for shape, dtype, bs in norms:
+        x = torch.randint(-3, 4, shape, generator=g, device=dev).to(dtype).div_(8)
+        got, want = kern.block_norms.launch(x, bs), kern.block_norms.plain(x, bs)
+        if not torch.equal(got, want):
+            fail(f"block_norms at the train shape {shape} {dtype} {bs}: max "
+                 f"diff {max_abs_err(got, want)}")
+    done["block_norms"] = len(norms)
+    # (base, ids, blocks, ("inplace", flag))
+    scatters = sorted({(r[0][0], r[0][1], r[1][0][0], r[2][0], r[2][1],
+                        tuple(r[3:])) for r in records["block_scatter"]},
+                      key=str)
+    for shape, dtype, k, b_shape, b_dtype, kw in scatters:
+        base = rand(shape, dtype)
+        bs = b_shape[1:]
+        ids = ids_for(shape, bs, k)
+        blocks = rand(b_shape, b_dtype)
+        got = kern.block_scatter.launch(base.clone(), ids, blocks, **dict(kw))
+        want = kern.block_scatter.plain(base.clone(), ids, blocks, **dict(kw))
+        if not same_bytes(got, want):
+            fail(f"block_scatter at the train shape {shape} {dtype} K={k}: "
+                 f"max diff {max_abs_err(got, want)}")
+    done["block_scatter"] = len(scatters)
+    torch.cuda.synchronize()
+    log(f"[check] train shapes against the plain versions, max diff 0: "
+        f"distinct shapes {json.dumps(done)}; block_gather "
+        f"{[(s, str(d), k, b) for s, d, k, b in gathers]}")
+
+
+def time_train_gather(torch, kern, gathers):
+    """The restore's largest block_gather (by bytes moved), timed beside
+    index_select and its bound; returns (ms, library_ms, bound_ms, what)."""
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(10)
+    shape, dtype, k, bs = max(
+        gathers, key=lambda s: s[2] * s[3][1] * torch.empty((), dtype=s[1]).element_size())
+    x = torch.randn(shape, generator=g, device=dev).to(dtype)
+    ids = torch.randperm(shape[0], generator=g, device=dev)[:k].to(torch.int32)
+    ids64 = ids.to(torch.int64)
+    nbytes = k * bs[1] * x.element_size()
+    bound = (2 * nbytes + 4 * k) / HBM_BYTES_PER_S * 1e3
+    k_t, lib_t = time_pair_ms(lambda: kern.block_gather.launch(x, ids, bs),
+                              lambda: x.index_select(0, ids64), 10)
+    what = f"K={k} {bs} {dtype}"
+    log(f"[time] block_gather at the restore's largest shape ({what}): kernel "
+        f"{spread(k_t)}, library {spread(lib_t)}, bound {bound!r} ms (bytes)")
+    return k_t, lib_t, bound, what
+
+
+def train_path(torch, np, layers, workdir):
+    """7: granite-3-8b trained on the card from an FTSF token corpus: plain
+    steps (step 1 held to the CPU), a checkpoint through DeltaCheckpointer
+    with an async save, an injected failure, a restore onto the card
+    (block_gather), a resumed step and an elastic slice restore, then the
+    compressed step over 2 pods (block_norms, block_gather, block_scatter).
+    Returns the phase's launches and the restore gather's timing."""
+    from repro_torch import kernels as kern
+    from repro_torch.core import DeltaTensorStore
+    from repro_torch.data.pipeline import FTSFLoader, write_token_dataset
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.lake import LocalFSObjectStore
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    from repro_torch.tree import leaves, tree_map
+
+    dev = torch.device("cuda")
+    cfg = serve_config(layers)
+    ocfg = opt.OptConfig(**TRAIN_OPT)
+    data = DeltaTensorStore(LocalFSObjectStore(str(workdir / "data")),
+                            "datasets", device=dev)
+    write_token_dataset(data, token_stream(TRAIN_SAMPLES, TRAIN_T,
+                                           cfg.vocab_size, seed=0),
+                        tensor_id="corpus")
+    loader = FTSFLoader(data, "corpus", batch_size=TRAIN_B, seed=0)
+    batches = iter(loader)
+
+    def next_batch():
+        b = next(batches)
+        return {k: torch.as_tensor(b[k]).to(dev) for k in ("tokens", "labels")}
+
+    records, undo = recording_launches(
+        torch, (kern.block_gather, kern.block_norms, kern.block_scatter))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts(kern)
+    try:
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = trainer.init_state(cfg, gen, device=dev)
+        n_params = tt.param_count(state.params)
+        state_bytes = sum(t.numel() * t.element_size() for _, t in leaves(state))
+        log(f"[train] {cfg.name} at published widths, {cfg.dtype}, depth cut to "
+            f"L = {layers} of 40: {n_params} parameters; TrainState "
+            f"{len(leaves(state))} leaves, {state_bytes} B (bf16 params, f32 m "
+            f"and v); batches {TRAIN_B}x{TRAIN_T} from an FTSF corpus of "
+            f"{TRAIN_SAMPLES} rows through FTSFLoader; OptConfig {TRAIN_OPT}")
+        step = trainer.make_train_step(cfg, ocfg)
+
+        # step 1: a short batch, held to the same call on the CPU
+        rng = np.random.default_rng(7)
+        tok = rng.integers(0, cfg.vocab_size, (SHORT_B, SHORT_T)).astype(np.int32)
+        lab = np.concatenate([tok[:, 1:], np.full((SHORT_B, 1), -1, np.int32)], 1)
+        state, _ = compare_train_step_on_cpu(
+            torch, step, state, {"tokens": torch.as_tensor(tok),
+                                 "labels": torch.as_tensor(lab)}, dev)
+
+        # steps 2-4 timed, step 5 profiled
+        tokens = TRAIN_B * TRAIN_T
+        step_ms, losses = [], []
+        for i in (2, 3, 4):
+            b = next_batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            losses.append(float(m["loss"]))
+            step_ms.append((time.perf_counter() - t0) * 1e3)
+        med = sorted(step_ms)[1] / 1e3
+        flops = 6 * n_params * tokens
+        log(f"[train] steps 2-4 ({tokens} tokens each): {step_ms} ms, losses "
+            f"{losses}; median {med * 1e3!r} ms, {tokens / med!r} tokens/s, "
+            f"model-FLOPs share {flops / med / PEAK_BF16_FLOPS!r} (6 N tokens "
+            f"= {flops} FLOP a step over 989 TFLOP/s, the H100 SXM's dense bf16 "
+            f"peak); peak device memory {torch.cuda.max_memory_allocated()} B")
+        box = {}
+        b5 = next_batch()
+
+        def run5():
+            box["out"] = step(state, b5)
+        profile_call(torch, f"train step 5 ({tokens} tokens)", run5)
+        state, m = box.pop("out")
+        if not math.isfinite(float(m["loss"])):
+            fail("non-finite loss at step 5")
+
+        # checkpoint: async save, injected failure, restore, resume, slice, gc
+        workroot = workdir.parent
+        free = shutil.disk_usage(workroot).free
+        log(f"[ckpt] {workroot}: {free} B free for a {state_bytes} B checkpoint")
+        if free < 1.5 * state_bytes:
+            fail(f"{workroot} has {free} B free; the checkpoint needs "
+                 f"{int(1.5 * state_bytes)} B")
+
+        class FailingFS(LocalFSObjectStore):
+            """A local store that counts puts and fails after ``fail_after``."""
+            fail_after = None
+            puts = 0
+
+            def put(self, key, data, *, if_absent=False):
+                if self.fail_after is not None and self.puts >= self.fail_after:
+                    raise IOError(f"injected fault after {self.puts} puts")
+                super().put(key, data, if_absent=if_absent)
+                self.puts += 1
+
+        obj = FailingFS(str(workdir / "ckpt"))
+        ck = ckpt_mod.DeltaCheckpointer(obj, device=dev)
+        saved = tree_map(torch.clone, state)        # step 5, kept on the card
+        b6 = next_batch()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save_async(5, state)
+        blocked = time.perf_counter() - t0
+        state, m6 = step(state, b6)
+        loss6 = float(m6["loss"])
+        step6_ms = (time.perf_counter() - t0 - blocked) * 1e3
+        ck.wait()
+        save_s = time.perf_counter() - t0
+        log(f"[ckpt] save_async of step 5: the loop blocked {blocked!r} s (the "
+            f"host snapshot); step 6 during the upload {step6_ms!r} ms; commit "
+            f"after {save_s!r} s, {state_bytes / save_s / 1e9!r} GB/s of state "
+            f"bytes, {obj.puts} puts")
+
+        obj.fail_after = obj.puts + 3
+        try:
+            ck.save(6, state)
+        except IOError as e:
+            log(f"[ckpt] save of step 6 failed as injected: {e}")
+        else:
+            fail("the injected fault did not fire")
+        obj.fail_after = None
+        fresh = ckpt_mod.DeltaCheckpointer(LocalFSObjectStore(str(workdir / "ckpt")),
+                                           device=dev)
+        if fresh.steps() != [5]:
+            fail(f"after the failed save the store holds steps {fresh.steps()}")
+        del state, m6
+        torch.cuda.empty_cache()
+
+        n_gather = len(records["block_gather"])
+        before = kern.launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        found, restored = fresh.restore(trainer.init_state(cfg, device="meta"),
+                                        device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        launched = {k: v - before[k] for k, v in kern.launch_counts().items()}
+        restore_gathers = records["block_gather"][n_gather:]
+        log(f"[ckpt] restore(device='cuda') of step {found}: {restore_s!r} s, "
+            f"{state_bytes / restore_s / 1e9!r} GB/s of state bytes; launches "
+            f"{json.dumps(launched)}")
+        if found != 5 or launched["block_gather"] <= 0:
+            fail("the restore did not bring step 5 back through block_gather")
+        bad = [n for (n, a), (_, b) in zip(leaves(restored), leaves(saved))
+               if not (a.is_cuda and same_bytes(a, b))]
+        if bad:
+            fail(f"restored leaves differ from the saved ones: {bad}")
+        log(f"[verify] every restored leaf ({len(leaves(restored))}) is on the "
+            f"card and byte-identical to the saved one, the 0-d step "
+            f"{int(restored.step)} and opt/count {int(restored.opt.count)} "
+            f"({restored.step.dtype}) included")
+
+        puts = obj.puts
+        t0 = time.perf_counter()
+        ck.save(7, restored)
+        incr_s = time.perf_counter() - t0
+        manifest = ck._manifest(7)[1]
+        if any(not tid.endswith("@5") for tid in manifest.values()):
+            fail("the incremental save of an unchanged state uploaded tensors")
+        log(f"[ckpt] incremental save of the unchanged state as step 7: "
+            f"{incr_s!r} s, {obj.puts - puts} puts, every leaf re-pointed at "
+            f"step 5's tensors")
+
+        restored, mr = step(restored, b6)
+        resumed = float(mr["loss"])
+        log(f"[verify] resumed step 6 loss {resumed!r} against the "
+            f"uninterrupted {loss6!r} (limit rtol {RESUME_RTOL})")
+        if not abs(resumed - loss6) <= RESUME_RTOL * abs(loss6):
+            fail("the resumed step's loss differs from the uninterrupted run's")
+        del restored, mr
+        half = cfg.vocab_size // 2
+        _, part = fresh.restore(
+            {"params": {"embed": torch.empty((half, cfg.d_model),
+                                             dtype=torch.bfloat16,
+                                             device="meta")}},
+            step=5, shard_slices={"params/embed": [(0, half)]})
+        if not same_bytes(part["params"]["embed"],
+                           saved.params["embed"][:half]):
+            fail("the elastic restore of half of params/embed differs")
+        log(f"[verify] elastic restore of params/embed[:{half}] byte-identical")
+        del part, saved
+        # gc(keep=1) without its compact: compact would merge each tensor's
+        # part files into one, through one zlib call over the whole tensor
+        t0 = time.perf_counter()
+        pruned = ck.prune(keep=1)
+        vac = ck.store.vacuum()
+        if ck.steps() != [7] or not ck.restore_available():
+            fail(f"prune(keep=1) left steps {ck.steps()}")
+        log(f"[ckpt] prune(keep=1) + vacuum: {time.perf_counter() - t0!r} s, "
+            f"pruned {pruned}, {sum(r.files_deleted for r in vac)} files and "
+            f"{sum(r.bytes_reclaimed for r in vac)} B reclaimed (the failed "
+            f"save's orphans), steps left {ck.steps()}")
+        torch.cuda.empty_cache()
+
+        # the compressed step: 2 pods, ratio 0.05
+        torch.cuda.reset_peak_memory_stats()
+        cstate = trainer.init_compressed_state(cfg, gen, PODS, device=dev)
+        cstep = trainer.make_compressed_train_step(cfg, ocfg, ratio=RATIO)
+
+        def pod_batch():
+            return {k: v.reshape(PODS, TRAIN_B // PODS, TRAIN_T)
+                    for k, v in next_batch().items()}
+        cms = []
+        for i in (1, 2, 3):
+            b = pod_batch()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cstate, cm = cstep(cstate, b)
+            torch.cuda.synchronize()
+            cms.append((time.perf_counter() - t0) * 1e3)
+            apart = [n for n, p in leaves(cstate.params)
+                     if not same_bytes(p[0], p[1])]
+            if apart:
+                fail(f"compressed step {i}: pods differ on {apart}")
+            if not (cm["wire_ratio"] < WIRE_LIMIT and math.isfinite(float(cm["loss"]))):
+                fail(f"compressed step {i}: wire ratio {cm['wire_ratio']!r}, "
+                     f"loss {float(cm['loss'])!r}")
+            log(f"[train] compressed step {i} ({PODS} pods x {TRAIN_B // PODS}x"
+                f"{TRAIN_T}): {cms[-1]!r} ms, loss {float(cm['loss'])!r}, wire "
+                f"ratio {cm['wire_ratio']!r}, pods byte-identical")
+        counts = kern.launch_counts()
+        b_prof = pod_batch()
+    finally:
+        undo()
+        loader.close()
+    log(f"[train] compressed steps {cms} ms; peak device memory "
+        f"{torch.cuda.max_memory_allocated()} B")
+    log(f"[train] launches over phase 7: {json.dumps(counts)}; block_gather by "
+        f"variant {json.dumps(kern.block_gather.variant_launches)}; restore "
+        f"block_gather {launched['block_gather']}")
+    for name in COMPRESS_KERNELS:
+        if counts[name] <= 0:
+            fail(f"kernel {name} was not launched on the training path")
+    box = {}
+
+    def run_compressed():
+        box["out"] = cstep(cstate, b_prof)
+    profile_call(torch, "compressed train step", run_compressed)
+    del cstate, box
+    torch.cuda.empty_cache()
+    check_train_kernels(torch, kern, records)
+    times = time_train_gather(torch, kern, sorted(
+        {(x[0], x[1], ids[0][0], bs) for x, ids, bs in restore_gathers}, key=str))
+    return counts, times
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -1745,8 +2162,16 @@ def main() -> int:
         paths["serve"], serve_times = serve_path(torch, np, args.layers, workdir)
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
 
-    # 7. report
+    # 7. training granite-3-8b, with checkpoints in the store
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=workroot))
+    try:
+        paths["train"], train_gather = train_path(torch, np, args.layers, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 8. report
     rows = []
     for name in REPLACES:
         ms, plain_ms, lib_ms, bound_ms = times[name]
@@ -1765,6 +2190,10 @@ def main() -> int:
             s_ms, s_lib, s_bound, s_what = serve_times[name]
             row.update(serve_shape=s_what, serve_ms=s_ms[0],
                        serve_library_ms=s_lib[0], serve_bound_ms=s_bound)
+        if name == "block_gather":
+            t_ms, t_lib, t_bound, t_what = train_gather
+            row.update(train_shape=t_what, train_ms=t_ms[0],
+                       train_library_ms=t_lib[0], train_bound_ms=t_bound)
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

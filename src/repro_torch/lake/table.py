@@ -17,9 +17,11 @@ while batches decode in plan order as their bytes arrive.
 from __future__ import annotations
 
 import hashlib
+import os
 import threading
 import uuid
 from collections import Counter
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
 
@@ -48,6 +50,41 @@ def chunk_hash(data: bytes) -> str:
     :mod:`repro_torch.core.cas`).
     """
     return hashlib.blake2b(data, digest_size=20).hexdigest()
+
+
+@dataclass
+class _EncodedPart:
+    """One part file's bytes as :meth:`DeltaTable.append` uploads them:
+    ``data`` framed under ``spec`` (or raw), with the hash and size of the
+    pre-codec bytes."""
+
+    data: bytes
+    stats: Dict[str, Any]
+    raw_len: int
+    content_hash: Optional[str]
+    spec: Optional[CompressionSpec]
+    codec_id: str
+    itemsize: int
+
+
+def _encode_part(columns: Dict[str, Any], spec: Optional[CompressionSpec],
+                 shuffle_itemsize: int, delta_base: Optional[DeltaBase], *,
+                 hashed: bool) -> _EncodedPart:
+    """Encode one part file (pure CPU work, safe on any thread)."""
+    framed = spec is not None and spec.active
+    # under a file-level codec the built-in per-block zlib must stay
+    # off: shuffling/compressing already-compressed blocks only burns
+    # CPU and hides the codec's real ratio
+    data, stats = columnar.write_table(columns, compress_blocks=not framed)
+    raw_len = len(data)
+    content_hash = chunk_hash(data) if hashed else None
+    codec_id = "none"
+    if framed:
+        data, codec_id = encode_frame(data, spec, itemsize=shuffle_itemsize,
+                                      delta_base=delta_base)
+    return _EncodedPart(data, stats, raw_len, content_hash,
+                        spec if framed else None, codec_id,
+                        int(shuffle_itemsize))
 
 
 def physical_path(add: Dict[str, Any]) -> str:
@@ -423,20 +460,26 @@ class DeltaTable:
             # an uncompressed XOR residue is exactly as large as the raw
             # bytes — deltas only pay off under a codec, so default one
             spec = parse_compression("zlib")
-        framed = spec is not None and spec.active
-        # under a file-level codec the built-in per-block zlib must stay
-        # off: shuffling/compressing already-compressed blocks only burns
-        # CPU and hides the codec's real ratio
-        data, stats = columnar.write_table(columns, compress_blocks=not framed)
-        add = {"path": f"part-{uuid.uuid4().hex}.pql", "stats": stats,
+        part = _encode_part(columns, spec, shuffle_itemsize, delta_base,
+                            hashed=cas is not None or delta_base is not None)
+        return self._place(part, partition_values=partition_values,
+                           commit=commit, guard=guard, cas=cas,
+                           dedup_seen=dedup_seen, delta_base=delta_base)
+
+    def _place(self, part: _EncodedPart, *,
+               partition_values: Optional[Dict[str, str]], commit: bool,
+               guard: Optional[UploadGuard], cas: Optional[Any],
+               dedup_seen: Optional[Set[str]],
+               delta_base: Optional[DeltaBase]) -> Dict[str, Any]:
+        """Upload (or dedup) one encoded part file; see :meth:`append`."""
+        add = {"path": f"part-{uuid.uuid4().hex}.pql", "stats": part.stats,
                "partitionValues": partition_values or {}, "dataChange": True}
-        content_hash: Optional[str] = None
-        if cas is not None or delta_base is not None:
-            content_hash = chunk_hash(data)
+        content_hash = part.content_hash
+        if content_hash is not None:
             add["contentHash"] = content_hash
         if cas is not None and content_hash is not None and \
                 (dedup_seen is None or content_hash not in dedup_seen):
-            reused = cas.reuse(self, content_hash, len(data), guard=guard)
+            reused = cas.reuse(self, content_hash, part.raw_len, guard=guard)
             if reused is not None:
                 add.update(reused)
                 if dedup_seen is not None:
@@ -444,23 +487,20 @@ class DeltaTable:
                 if commit:
                     self.log.commit([{"add": add}], op="WRITE")
                 return add
-        if framed:
-            raw_len = len(data)
-            data, codec_id = encode_frame(data, spec,
-                                          itemsize=shuffle_itemsize,
-                                          delta_base=delta_base)
-            if codec_id != "none":
-                add["codec"] = codec_id
-                add["rawSize"] = raw_len
-                add["itemsize"] = int(shuffle_itemsize)
+        data = part.data
+        if part.spec is not None:
+            if part.codec_id != "none":
+                add["codec"] = part.codec_id
+                add["rawSize"] = part.raw_len
+                add["itemsize"] = part.itemsize
             # else: incompressible fallback — stored raw and UNFRAMED, the
             # file is byte-identical to an uncompressed write, so no
             # codec/rawSize is recorded (ratio stays exactly 1.0)
-            if codec_id != spec.id:
+            if part.codec_id != part.spec.id:
                 # what actually happened differs from what was asked (raw
                 # fallback, or shuffle skipped for 1-byte dtypes): record
                 # the request so recompress-to-this-spec stays idempotent
-                add["codecRequested"] = spec.id
+                add["codecRequested"] = part.spec.id
             if delta_base is not None:
                 # mirrored from the frame header so vacuum's liveness scan
                 # and the read planner see the base dependency without
@@ -503,14 +543,22 @@ class DeltaTable:
         rows = len(next(iter(columns.values())))
         per_file = max(1, int(target_bytes //
                               max(approx_row_bytes(columns, rows), 1)))
-        adds: List[Dict[str, Any]] = []
-        for lo in range(0, rows, per_file):
-            adds.append(self.append(
-                slice_columns(columns, lo, min(rows, lo + per_file)),
-                commit=False, guard=guard, compression=compression,
-                shuffle_itemsize=shuffle_itemsize, cas=cas,
-                dedup_seen=dedup_seen, partition_values=partition_values))
-        return adds
+        spec = parse_compression(compression)
+        windows = [slice_columns(columns, lo, min(rows, lo + per_file))
+                   for lo in range(0, rows, per_file)]
+
+        def encode(window):
+            return _encode_part(window, spec, shuffle_itemsize, None,
+                                hashed=cas is not None)
+        # the files encode at once (zlib and blake2b release the GIL) and
+        # upload in row order, one at a time, so content dedup and the
+        # guard see them as a serial writer would
+        workers = max(1, min(len(windows), os.cpu_count() or 1))
+        with ThreadPoolExecutor(max_workers=workers) as pool:
+            return [self._place(part, partition_values=partition_values,
+                                commit=False, guard=guard, cas=cas,
+                                dedup_seen=dedup_seen, delta_base=None)
+                    for part in pool.map(encode, windows)]
 
     def commit_adds(self, adds: List[Dict[str, Any]], *, removes: Sequence[str] = (),
                     op: str = "WRITE",

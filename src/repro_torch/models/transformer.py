@@ -11,8 +11,9 @@ the same stacking: ``caches["blocks"]`` is one :class:`KVCache` of
 per-slot lengths (B,).
 
 The ``vlm``, ``audio``, ``hybrid`` and ``ssm`` families (``models/ssm.py``)
-are not ported yet and raise ``NotImplementedError``. Serving needs no
-remat and no scan, so neither is here.
+are not ported yet and raise ``NotImplementedError``. There is no scan,
+and the layers are not rematerialised in the backward pass (the reference
+remats each layer); only the cross-entropy's chunks are (:func:`loss_fn`).
 """
 
 from __future__ import annotations
@@ -20,6 +21,7 @@ from __future__ import annotations
 from typing import Any, Dict, Optional, Tuple
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from ..tree import leaves, rebuild, tree_map
 from .attention import Index, KVCache, attn_apply, attn_init, init_kv_cache
@@ -146,6 +148,45 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, **kw
     h, new_caches, aux = _backbone(params, cfg, tokens, **kw)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed(table, h, tied=cfg.tie_embeddings), new_caches, aux
+
+
+CE_CHUNK = 1024
+
+
+def _ce_chunk(table: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor,
+              tied: bool) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked NLL, count of labels >= 0) of one chunk."""
+    logits = unembed(table, h_c, tied=tied)              # (B, c, V) f32
+    logp = torch.log_softmax(logits, dim=-1)
+    nll = -logp.gather(-1, l_c.clamp_min(0)[..., None].long())[..., 0]
+    mask = (l_c >= 0).float()
+    return (nll * mask).sum(), mask.sum()
+
+
+def _chunked_ce(h: torch.Tensor, table: torch.Tensor, tied: bool,
+                labels: torch.Tensor) -> torch.Tensor:
+    """Mean cross-entropy over the labels >= 0, without materialising
+    (B, T, V) logits: one (B, ``CE_CHUNK``, V) f32 tile of sequence positions
+    at a time, recomputed in the backward pass (the reference's
+    ``jax.checkpoint`` chunk body). The last chunk is ragged where the
+    reference pads it with masked positions, which add nothing."""
+    c = min(CE_CHUNK, h.shape[1])
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, h.shape[1], c):
+        n, m = checkpoint(_ce_chunk, table, h[:, s:s + c], labels[:, s:s + c],
+                          tied, use_reentrant=False)
+        tot, cnt = tot + n, cnt + m
+    return tot / cnt.clamp_min(1.0)
+
+
+def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
+            ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """``batch`` {"tokens", "labels"} (B, T), labels -1 where masked ->
+    (total = loss + 0.01 aux, {"loss", "aux"})."""
+    h, _, aux = _backbone(params, cfg, batch["tokens"])
+    table = params["embed"] if cfg.tie_embeddings else params["unembed"]
+    loss = _chunked_ce(h, table, cfg.tie_embeddings, batch["labels"])
+    return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
 def prefill(params, cfg, tokens, caches):

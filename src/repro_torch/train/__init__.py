@@ -1,4 +1,5 @@
-"""Training-side modules of the port: block-top-k gradient compression."""
-from . import grad_compress
+"""Training modules of the port: AdamW, the plain and compressed train
+steps, block-top-k gradient compression and delta checkpoints."""
+from . import checkpoint, grad_compress, optimizer, trainer
 
-__all__ = ["grad_compress"]
+__all__ = ["checkpoint", "grad_compress", "optimizer", "trainer"]

@@ -1,11 +1,14 @@
 """Trees of tensors: flattening, leaf names, and the crossing to numpy.
 
-Parameter, gradient and residual trees are nested dicts, lists and tuples
-of tensors. Dict keys are visited in sorted order, as ``jax.tree_util``
-flattens a dict, and a leaf's name joins its path with ``/``
-(``blocks/attn/wq``, ``layers/0``), as the reference's ``_path_str``
-(``repro.dist.sharding``) names it. The names are the tensor ids under a
-``ModelRepo`` prefix, so weights written by either package load in the
+Parameter, gradient, residual and train-state trees are nested dicts,
+lists, tuples and NamedTuples of tensors. Dict keys are visited in sorted
+order and a NamedTuple's fields in their declared order, as
+``jax.tree_util`` flattens them, and a leaf's name joins its path with
+``/`` (``blocks/attn/wq``, ``layers/0``, ``opt/m/embed``), as the
+reference's ``_path_str`` (``repro.dist.sharding``) names it: a list or
+tuple position by its index, a NamedTuple field by its name. The names are
+the tensor ids under a ``ModelRepo`` prefix and a checkpoint's manifest
+keys, so weights and checkpoints written by either package load in the
 other.
 """
 
@@ -20,29 +23,37 @@ from .core.encodings.base import BF16_STAGING, ml_dtypes
 from .lake.device import to_torch
 
 
+def _is_namedtuple(tree: Any) -> bool:
+    return isinstance(tree, tuple) and hasattr(tree, "_fields")
+
+
 def leaves(tree: Any, path: str = "") -> List[Tuple[str, Any]]:
     """``(name, leaf)`` pairs of ``tree`` in flattening order."""
     if isinstance(tree, dict):
-        out: List[Tuple[str, Any]] = []
-        for key in sorted(tree):
-            out += leaves(tree[key], f"{path}/{key}" if path else str(key))
-        return out
-    if isinstance(tree, (list, tuple)):
-        out = []
-        for i, sub in enumerate(tree):
-            out += leaves(sub, f"{path}/{i}" if path else str(i))
-        return out
-    return [(path, tree)]
+        keys = sorted(tree)
+        subs = [tree[key] for key in keys]
+    elif _is_namedtuple(tree):
+        keys, subs = tree._fields, tree
+    elif isinstance(tree, (list, tuple)):
+        keys, subs = range(len(tree)), tree
+    else:
+        return [(path, tree)]
+    out: List[Tuple[str, Any]] = []
+    for key, sub in zip(keys, subs):
+        out += leaves(sub, f"{path}/{key}" if path else str(key))
+    return out
 
 
 def rebuild(tree: Any, new_leaves) -> Any:
-    """``tree``'s structure with its leaves taken, in order, from the
-    iterator ``new_leaves``."""
+    """``tree``'s structure, NamedTuple types included, with its leaves
+    taken, in order, from the iterator ``new_leaves``."""
     if isinstance(tree, dict):
         return {key: rebuild(tree[key], new_leaves) for key in sorted(tree)}
     if isinstance(tree, (list, tuple)):
         items = [rebuild(sub, new_leaves) for sub in tree]
-        return items if isinstance(tree, list) else tuple(items)
+        if isinstance(tree, list):
+            return items
+        return type(tree)(*items) if _is_namedtuple(tree) else tuple(items)
     return next(new_leaves)
 
 

@@ -383,6 +383,9 @@ def test_import_without_jax_repro_or_ml_dtypes(tmp_path):
         import repro_torch.data.ingest
         import repro_torch.models, repro_torch.serve, repro_torch.tree
         import repro_torch.examples.serve_lm
+        import repro_torch.train, repro_torch.train.optimizer
+        import repro_torch.train.trainer, repro_torch.train.checkpoint
+        import repro_torch.launch.train, repro_torch.examples.train_lm
         from repro_torch.core import DeltaTensorStore
         from repro_torch.lake import LocalFSObjectStore
         store = DeltaTensorStore(LocalFSObjectStore({str(tmp_path)!r}), "t",
