@@ -3,7 +3,7 @@
 
 Run from the repository root on a machine with an H100:
 
-    python3 chip_smoke.py [--images N] [--layers L]
+    python3 chip_smoke.py [--images N] [--layers L] [--vlm-layers L]
 
 Phases, each of which exits non-zero on failure:
 
@@ -31,7 +31,9 @@ Phases, each of which exits non-zero on failure:
    shape, and at the compressor's (8, 128) shape; the frame-decode hook's
    wall and device time per 12 MiB chunk in turns with the other ways to
    the same bytes, and its split (H2D, kernel, D2H, and the pinned
-   alternatives); the host time of the launch path's parts;
+   alternatives); the host time of the launch path's parts; ``block_gather``
+   at the compressor's (8, 128) shape is timed in turns with its library
+   call and reported in its row;
 4. drive the store's device read path at the paper's width: N FFHQ-like
    images of 3x1024x1024 f32 (N = 256 by default; ``--images`` cuts the
    image count, never the image shape) stored as FTSF with 3-D chunks under
@@ -80,6 +82,23 @@ Phases, each of which exits non-zero on failure:
    many agree with their solo runs is printed, not gated). Prints save and
    cold-load seconds and GB/s, a profiled load's idle share, prefill ms,
    decode tokens/s at 4 slots and peak device memory;
+6b. serving the other families the same way (save, counted cold load with
+   its kernels held at every shape it gave them, one prefill against the
+   CPU, 1 slot against the offline loop, 8 requests through 4 slots, the
+   host's peak RSS during the save, a profiled prefill and decode step),
+   except that the prefill is held to the CPU's on the same weights cast to
+   f32 on both sides, and its bf16 difference only printed: at random
+   weights the deep recurrent stacks carry the two devices' different bf16
+   rounding into their logits well past 2e-2, while their f32 forwards
+   agree far inside it:
+   whisper-tiny, xlstm-1.3b and zamba2-2.7b at their published depth, and
+   llama-3.2-vision-11b at its published widths, depth cut to L = 10 of 40
+   (``--vlm-layers``; the run's time limit). The vlm gets seeded
+   ``image_embeds`` (4, 1024, 4096) bf16, whisper seeded ``encoder_frames``
+   (4, 1500, 384) bf16 (its 30-s window after the stride-2 conv) and a
+   decoder ``max_len`` of 448, its published target length. Then the ssm
+   math (the chunked core, its decode step, the conv, sLSTM) is timed at
+   its serve shapes;
 7. training: granite-3-8b at its published widths, bf16, depth cut to L =
    4 of 40 (``--layers``), random weights from a seeded generator, batches
    of 8x256 tokens read through ``FTSFLoader`` from an FTSF token corpus
@@ -102,8 +121,9 @@ Phases, each of which exits non-zero on failure:
    each is held to its plain version at every shape the phase gave it, and
    ``block_gather`` timed at the restore's largest;
 8. print the card's name and power limit, one JSON line of per-kernel
-   numbers (launches per path: read, stream, compress, serve, train), and
-   as the last line ``{"ok": true, "device": {...}}``.
+   numbers (launches per path: read, stream, compress, serve, one serve
+   path per family of 6b, train), and as the last line ``{"ok": true,
+   "device": {...}}``.
 
 It imports nothing of jax or of the JAX package ``repro``.
 """
@@ -147,6 +167,10 @@ def parse_args():
                    help="granite-3-8b layers in the gradient tree, the served "
                         "and the trained model (default 4 of 40; widths are "
                         "never cut)")
+    p.add_argument("--vlm-layers", type=int, default=10,
+                   help="llama-3.2-vision-11b layers served in phase 6b, a "
+                        "multiple of 5 (default 10 of 40; widths are never "
+                        "cut)")
     return p.parse_args()
 
 
@@ -711,13 +735,21 @@ def time_kernels(torch, kern, main):
     egrid = e.view(gh, BLOCK[0], gw, BLOCK[1]).permute(0, 2, 1, 3)
     g_bound = (2 * tiles.numel() * 4 + sel.numel() * 4) / HBM_BYTES_PER_S * 1e3
     reset_counts(kern)
-    g_ms = time_ms(lambda: kern.block_gather.launch(e, sel, BLOCK), 30)
-    g_lib = time_ms(lambda: egrid[ti, tj], 30)
+    g_ms, g_lib = time_pair_ms(lambda: kern.block_gather.launch(e, sel, BLOCK),
+                               lambda: egrid[ti, tj], 30)
+    g_dev = device_ms_per_call(
+        torch, lambda: kern.block_gather.launch(e, sel, BLOCK), 30)[0]
     log(f"[time] block_gather at the compress shape, K = {sel.numel()} "
-        f"{BLOCK} f32 tiles of ({m}, {n}), launches by variant "
+        f"{BLOCK} f32 tiles of ({m}, {n}), in turns with its library call, "
+        f"launches by variant "
         f"{json.dumps(kern.block_gather.variant_launches)}: kernel "
-        f"{spread(g_ms)}, library (permuted view [ti, tj]) {spread(g_lib)}, "
-        f"bound {g_bound!r} ms (bytes)")
+        f"{spread(g_ms)} (device {g_dev!r} ms), library (permuted view "
+        f"[ti, tj]) {spread(g_lib)}, bound {g_bound!r} ms (bytes)")
+    compress_times = {
+        "compress_shape": f"K={sel.numel()} {BLOCK} torch.float32 of "
+                          f"({m}, {n})",
+        "compress_ms": g_ms[0], "compress_device_ms": g_dev,
+        "compress_library_ms": g_lib[0], "compress_bound_ms": g_bound}
     # with its copy of base (no caller on the main path): every element of
     # out is written once and only base's elements outside the tiles need
     # reading, so at least base read and out written, plus the ids
@@ -741,7 +773,8 @@ def time_kernels(torch, kern, main):
     for name, ((k_ms, k_names), (l_ms, l_names)) in dev_ms.items():
         log(f"[time] {name} device time per call (torch.profiler): kernel "
             f"{k_ms!r} ms {k_names}, library {l_ms!r} ms {l_names}")
-    return out, {name: (k[0], lib[0]) for name, (k, lib) in dev_ms.items()}
+    return (out, {name: (k[0], lib[0]) for name, (k, lib) in dev_ms.items()},
+            compress_times)
 
 
 def time_unshuffle_hook(torch, np, kern, ops):
@@ -1467,7 +1500,7 @@ def time_serve_kernels(torch, kern, gathers, frames):
                               lambda: x.index_select(0, ids64), 10)
     out["block_gather"] = (k_t, lib_t, bound, f"K={k} {bs} {dtype}")
     del x
-    shape = frames[-1]
+    shape = max(frames, key=lambda s: s[0] * s[1])
     planes = torch.randint(0, 256, shape, generator=g, device=dev,
                            dtype=torch.uint8)
     bound = 2 * planes.numel() / HBM_BYTES_PER_S * 1e3
@@ -1481,60 +1514,128 @@ def time_serve_kernels(torch, kern, gathers, frames):
     return out
 
 
-def greedy(torch, tt, params, cfg, prompt, n_new, max_len):
+def greedy(torch, tt, params, cfg, prompt, n_new, max_len, extra=None,
+           enc_len=1):
     """prefill + decode_step on one lane, argmax each step: the offline
-    reference the engine is held to. Returns (tokens, prefill ms)."""
+    reference the engine is held to (``extra``: row 0 of each stub-frontend
+    input, given to every call, as a 1-slot engine gives it). Returns
+    (tokens, prefill ms)."""
     dev = torch.device("cuda")
-    caches = tt.init_caches(cfg, 1, max_len, device=dev)
+    extra = extra or {}
+    caches = tt.init_caches(cfg, 1, max_len, enc_len=enc_len, device=dev)
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     logits, caches, _ = tt.prefill(params, cfg, torch.as_tensor(
-        prompt[None].astype("int64")).to(dev), caches)
+        prompt[None].astype("int64")).to(dev), caches, **extra)
     out = [int(logits[0, -1].argmax())]
     prefill_ms = (time.perf_counter() - t0) * 1e3
     while len(out) < n_new:
         logits, caches, _ = tt.decode_step(
-            params, cfg, torch.tensor([[out[-1]]], device=dev), caches)
+            params, cfg, torch.tensor([[out[-1]]], device=dev), caches,
+            **extra)
         out.append(int(logits[0, 0].argmax()))
     return out, prefill_ms
 
 
-def check_prefill_on_cpu(torch, tt, params, cfg, prompt):
-    """One request's prefill logits on the card against the port's own
-    forward on the CPU with the same bf16 weights."""
-    from repro_torch.tree import tree_map
-    dev = torch.device("cuda")
-    tok = torch.as_tensor(prompt[None].astype("int64"))
-    got, _, _ = tt.prefill(params, cfg, tok.to(dev),
-                           tt.init_caches(cfg, 1, SERVE_MAX_LEN, device=dev))
-    got = got[0].cpu()
-    t0 = time.perf_counter()
-    cpu_params = tree_map(lambda t: t.cpu(), params)
-    want, _, _ = tt.prefill(cpu_params, cfg, tok,
-                            tt.init_caches(cfg, 1, SERVE_MAX_LEN, device="cpu"))
-    cpu_s = time.perf_counter() - t0
-    want = want[0]
-    del cpu_params
-    if cpu_s > CPU_BUDGET_S:
-        fail(f"the CPU forward took {cpu_s!r} s, over its {CPU_BUDGET_S} s budget")
-    if not bool(torch.isfinite(got).all()):
-        fail("non-finite prefill logits on the card")
+def _prefill_logits(torch, tt, params, cfg, tok, extra, enc_len, max_len,
+                    device):
+    """(T, V) f32 prefill logits of one lane on ``device``."""
+    caches = tt.init_caches(cfg, 1, max_len, enc_len=enc_len, device=device)
+    logits, _, _ = tt.prefill(params, cfg, tok.to(device), caches,
+                              **{k: v.to(device) for k, v in extra.items()})
+    return logits[0]
+
+
+def _compare_logits(torch, got, want):
+    """(max|d|, max|want|, argmax agreements, decided positions): argmax is
+    decided where want's top-1 margin exceeds 2 max|d|."""
     diff = float((got - want).abs().max())
     scale = float(want.abs().max())
     top2 = want.topk(2, dim=-1).values
-    margin = top2[:, 0] - top2[:, 1]
-    decided = margin > 2 * diff
+    decided = (top2[:, 0] - top2[:, 1]) > 2 * diff
     agree = got.argmax(-1)[decided] == want.argmax(-1)[decided]
-    log(f"[verify] prefill logits ({SERVE_PROMPT} tokens) against the CPU "
-        f"({cpu_s!r} s): max|d| {diff!r}, max|logits_cpu| {scale!r}, ratio "
-        f"{diff / scale!r} (limit {LOGIT_RTOL}); argmax agrees on "
-        f"{int(agree.sum())} of {int(decided.sum())} positions whose top-1 "
-        f"margin exceeds 2 max|d| ({SERVE_PROMPT} positions)")
-    if diff > LOGIT_RTOL * scale:
-        fail(f"prefill logits differ from the CPU's by {diff!r} > "
-             f"{LOGIT_RTOL} * {scale!r}")
-    if not bool(agree.all()):
-        fail("the prefill argmax differs from the CPU's where the margin decides")
+    return diff, scale, int(agree.sum()), int(decided.sum())
+
+
+def check_prefill_on_cpu(torch, tt, params, cfg, prompt, tag="serve",
+                         extra=None, enc_len=1, max_len=SERVE_MAX_LEN,
+                         in_f32=False):
+    """One request's prefill logits on the card against the port's own
+    forward on the CPU with the same weights and stub-frontend rows: in the
+    served dtype, or, with ``in_f32``, on the same weights cast to f32 on
+    both sides (the served-dtype difference is then printed beside it)."""
+    import dataclasses
+    from repro_torch.tree import tree_map
+    extra = extra or {}
+    tok = torch.as_tensor(prompt[None].astype("int64"))
+    runs = [("served dtype", params, cfg, extra)]
+    if in_f32:
+        runs.append(("f32", tree_map(lambda t: t.float(), params),
+                     dataclasses.replace(cfg, dtype="float32"),
+                     {k: v.float() for k, v in extra.items()}))
+    cpu_s = 0.0
+    for what, p, c, x in runs:
+        got = _prefill_logits(torch, tt, p, c, tok, x, enc_len, max_len,
+                              "cuda").cpu()
+        if not bool(torch.isfinite(got).all()):
+            fail(f"[{tag}] non-finite prefill logits on the card ({what})")
+        t0 = time.perf_counter()
+        cpu_params = tree_map(lambda t: t.cpu(), p)
+        want = _prefill_logits(torch, tt, cpu_params, c, tok, x, enc_len,
+                               max_len, "cpu")
+        cpu_s += time.perf_counter() - t0
+        del cpu_params, p
+        diff, scale, agree, decided = _compare_logits(torch, got, want)
+        gated = what == runs[-1][0]
+        log(f"[verify] {tag} prefill logits ({len(prompt)} tokens, {what}) "
+            f"against the CPU: max|d| {diff!r}, max|logits_cpu| {scale!r}, "
+            f"ratio {diff / scale!r} "
+            f"({f'limit {LOGIT_RTOL}' if gated else 'information'}); argmax "
+            f"agrees on {agree} of {decided} positions whose top-1 margin "
+            f"exceeds 2 max|d| ({len(prompt)} positions)")
+        if not gated:
+            continue
+        if cpu_s > CPU_BUDGET_S:
+            fail(f"[{tag}] the CPU forward took {cpu_s!r} s, over its "
+                 f"{CPU_BUDGET_S} s budget")
+        if diff > LOGIT_RTOL * scale:
+            fail(f"[{tag}] prefill logits ({what}) differ from the CPU's by "
+                 f"{diff!r} > {LOGIT_RTOL} * {scale!r}")
+        if agree != decided:
+            fail(f"[{tag}] the prefill argmax ({what}) differs from the CPU's "
+                 f"where the margin decides")
+    runs.clear()
+    log(f"[verify] {tag}: the CPU forwards took {cpu_s!r} s")
+
+
+class PeakRSS:
+    """The host's peak resident set over a ``with`` block, sampled every
+    10 ms from /proc/self/statm by a thread (``peak``, ``base`` in B)."""
+
+    def __init__(self):
+        import os
+        import threading
+        self._page = os.sysconf("SC_PAGE_SIZE")
+        self._stop = threading.Event()
+        self._thread = threading.Thread(target=self._run, daemon=True)
+        self.base = self.peak = self._rss()
+
+    def _rss(self) -> int:
+        with open("/proc/self/statm") as f:
+            return int(f.read().split()[1]) * self._page
+
+    def _run(self) -> None:
+        while not self._stop.wait(0.01):
+            self.peak = max(self.peak, self._rss())
+
+    def __enter__(self) -> "PeakRSS":
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._stop.set()
+        self._thread.join()
+        self.peak = max(self.peak, self._rss())
 
 
 def serve_path(torch, np, layers, workdir):
@@ -1542,6 +1643,23 @@ def serve_path(torch, np, layers, workdir):
     through ModelRepo.load (the counted path: block_gather and unshuffle),
     then served through ServeEngine. Returns the load's launches and the
     timings of time_serve_kernels."""
+    cfg = serve_config(layers)
+    return serve_model(torch, np, cfg, workdir, tag="serve", depth=(
+        f"depth cut to L = {layers} of 40 layers (the run's time limit: the "
+        f"save goes through the host's zlib)"), profile_load=True)
+
+
+def serve_model(torch, np, cfg, workdir, *, tag, depth, extra_rows=None,
+                enc_len=1, max_len=SERVE_MAX_LEN, profile_load=False,
+                check_in_f32=False):
+    """Save ``cfg``'s seeded random weights to the store, cold-load them
+    onto the card through ModelRepo.load (the counted path: block_gather
+    and unshuffle), hold the load and one prefill to their references, then
+    serve through ServeEngine (1 slot against the offline loop, then 8
+    requests through 4 slots). ``extra_rows`` makes the stub frontends'
+    inputs, one row per slot, from a generator; ``check_in_f32`` holds the
+    prefill to the CPU's in f32 (see check_prefill_on_cpu). Returns the
+    load's launches and the timings of time_serve_kernels."""
     from repro_torch import kernels as kern
     from repro_torch.core import DeltaTensorStore
     from repro_torch.lake import LocalFSObjectStore
@@ -1550,30 +1668,31 @@ def serve_path(torch, np, layers, workdir):
     from repro_torch.tree import leaves
 
     dev = torch.device("cuda")
-    cfg = serve_config(layers)
     torch.cuda.reset_peak_memory_stats()
     gen = torch.Generator(device=dev).manual_seed(0)
     params = tt.init_params(cfg, gen, device=dev)
     n_params = tt.param_count(params)
     tensor_bytes = sum(t.numel() * t.element_size() for _, t in leaves(params))
-    log(f"[serve] {cfg.name} at published widths (d_model {cfg.d_model}, "
-        f"{cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, head_dim {cfg.hd}, "
-        f"d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, untied, {cfg.dtype}); "
-        f"depth cut to L = {layers} of 40 layers (the run's time limit: the "
-        f"save goes through the host's zlib): {len(leaves(params))} leaves, "
-        f"{n_params} parameters, {tensor_bytes} B; weights random from "
-        f"torch.Generator seed 0")
+    log(f"[{tag}] {cfg.name} ({cfg.family}) at published widths (d_model "
+        f"{cfg.d_model}, {cfg.n_heads} heads, {cfg.n_kv_heads} KV heads, "
+        f"head_dim {cfg.hd}, d_ff {cfg.d_ff}, vocab {cfg.vocab_size}, "
+        f"{'tied' if cfg.tie_embeddings else 'untied'}, {cfg.dtype}); "
+        f"{depth}: {len(leaves(params))} leaves, {n_params} parameters, "
+        f"{tensor_bytes} B; weights random from torch.Generator seed 0")
 
     store = DeltaTensorStore(LocalFSObjectStore(str(workdir)), "serve",
                              compression=SERVE_COMPRESSION)
-    t0 = time.perf_counter()
-    with store.models(cfg.name) as repo:
-        repo.save(params)
-        stored = repo.stats()["stored_bytes"]
-    save_s = time.perf_counter() - t0
-    log(f"[serve] save ({SERVE_COMPRESSION}, LocalFSObjectStore): {save_s!r} "
+    with PeakRSS() as rss:
+        t0 = time.perf_counter()
+        with store.models(cfg.name) as repo:
+            repo.save(params)
+            stored = repo.stats()["stored_bytes"]
+        save_s = time.perf_counter() - t0
+    log(f"[{tag}] save ({SERVE_COMPRESSION}, LocalFSObjectStore): {save_s!r} "
         f"s, {tensor_bytes / save_s / 1e9!r} GB/s of tensor bytes, stored "
-        f"{stored} B ({stored / tensor_bytes!r} of the tensor bytes)")
+        f"{stored} B ({stored / tensor_bytes!r} of the tensor bytes); host "
+        f"peak RSS during the save {rss.peak} B ({rss.peak - rss.base} B "
+        f"above the {rss.base} B before it)")
 
     # the counted path: a cold load onto the card
     template = tt.init_params(cfg, device="meta")
@@ -1592,51 +1711,71 @@ def serve_path(torch, np, layers, workdir):
     counts = kern.launch_counts()
     variants = variant_counts(kern)
     itemsizes = sorted({planes[0][0] for (planes,) in records["unshuffle"]})
-    log(f"[serve] cold load: {load_s!r} s, {tensor_bytes / load_s / 1e9!r} GB/s "
-        f"of tensor bytes, {stored / load_s / 1e9!r} GB/s of stored bytes; "
-        f"io_stats {json.dumps(store.io_stats(), sort_keys=True, default=str)}")
-    log(f"[serve] launches during the load: {json.dumps(counts)}; by variant "
-        f"{json.dumps(variants)}; unshuffle itemsizes {itemsizes}")
+    leaf_sizes = sorted({t.element_size() for _, t in leaves(params)})
+    log(f"[{tag}] cold load: {load_s!r} s, {tensor_bytes / load_s / 1e9!r} "
+        f"GB/s of tensor bytes, {stored / load_s / 1e9!r} GB/s of stored "
+        f"bytes; io_stats "
+        f"{json.dumps(store.io_stats(), sort_keys=True, default=str)}")
+    log(f"[{tag}] launches during the load: {json.dumps(counts)}; by variant "
+        f"{json.dumps(variants)}; unshuffle itemsizes {itemsizes} (leaf "
+        f"itemsizes {leaf_sizes})")
     for name in ("block_gather", "unshuffle"):
         if counts[name] <= 0:
-            fail(f"kernel {name} was not launched on the serve path")
-    if itemsizes != [2] or variants["unshuffle"]["register"] != counts["unshuffle"]:
-        fail("the serve path's unshuffle launches were not all the register "
-             "variant at itemsize 2")
+            fail(f"kernel {name} was not launched on the {tag} path")
+    if (not set(itemsizes) <= set(leaf_sizes)
+            or variants["unshuffle"]["register"] != counts["unshuffle"]):
+        fail(f"the {tag} path's unshuffle launches were not all the register "
+             f"variant at the leaves' itemsizes")
     for (name, want), (_, got) in zip(leaves(params), leaves(loaded)):
         if not (got.is_cuda and same_bytes(got, want)):
-            fail(f"loaded leaf {name} differs from the saved one")
-    log(f"[verify] every loaded leaf ({len(leaves(loaded))}) is on the card "
-        f"and byte-identical to the saved one")
+            fail(f"[{tag}] loaded leaf {name} differs from the saved one")
+    log(f"[verify] {tag}: every loaded leaf ({len(leaves(loaded))}) is on the "
+        f"card and byte-identical to the saved one")
     del params
     gathers, frames = check_serve_kernels(torch, kern, records)
     times = time_serve_kernels(torch, kern, gathers, frames)
-    profile_call(torch, "cold load", lambda: repo.load(template, device="cuda"))
+    if profile_load:
+        profile_call(torch, "cold load",
+                     lambda: repo.load(template, device="cuda"))
     torch.cuda.empty_cache()
 
     rng = np.random.default_rng(0)
+    extra = {}
+    if extra_rows is not None:
+        extra = extra_rows(torch.Generator(device=dev).manual_seed(1))
+        log(f"[{tag}] stub frontend inputs, one row per slot: "
+            + ", ".join(f"{k} {tuple(v.shape)} {v.dtype}"
+                        for k, v in extra.items()))
+    row0 = {k: v[:1] for k, v in extra.items()}
     prompt = rng.integers(0, cfg.vocab_size, SERVE_PROMPT).astype(np.int32)
-    check_prefill_on_cpu(torch, tt, loaded, cfg, prompt)
+    check_prefill_on_cpu(torch, tt, loaded, cfg, prompt, tag, row0, enc_len,
+                         max_len, in_f32=check_in_f32)
+
+    def engine(n_slots):
+        return ServeEngine(loaded, cfg, n_slots=n_slots, max_len=max_len,
+                           extra_inputs=extra, enc_len=enc_len)
 
     # one request alone through the engine against the offline loop
-    solo, _ = greedy(torch, tt, loaded, cfg, prompt, SERVE_NEW, SERVE_MAX_LEN)
-    with ServeEngine(loaded, cfg, n_slots=1, max_len=SERVE_MAX_LEN) as eng:
+    solo, _ = greedy(torch, tt, loaded, cfg, prompt, SERVE_NEW, max_len, row0,
+                     enc_len)
+    with engine(1) as eng:
         req = Request(rid=0, prompt=prompt, max_new_tokens=SERVE_NEW)
         eng.submit(req)
         eng.run_until_drained()
     if req.out_tokens != solo:
-        fail(f"the engine's tokens differ from the offline decode: "
+        fail(f"[{tag}] the engine's tokens differ from the offline decode: "
              f"{req.out_tokens} vs {solo}")
-    log(f"[verify] one request through ServeEngine (1 slot) equals the offline "
-        f"prefill + decode_step loop, {SERVE_NEW} tokens")
+    log(f"[verify] {tag}: one request through ServeEngine (1 slot) equals the "
+        f"offline prefill + decode_step loop, {SERVE_NEW} tokens")
 
     # continuous batching: 8 requests through 4 slots
     lens = rng.integers(16, 129, SERVE_REQUESTS)
     prompts = [rng.integers(0, cfg.vocab_size, int(n)).astype(np.int32)
                for n in lens]
     solos, prefill_ms = zip(*[greedy(torch, tt, loaded, cfg, p, SERVE_NEW,
-                                     SERVE_MAX_LEN) for p in prompts])
-    eng = ServeEngine(loaded, cfg, n_slots=SERVE_SLOTS, max_len=SERVE_MAX_LEN)
+                                     max_len, row0, enc_len)
+                              for p in prompts])
+    eng = engine(SERVE_SLOTS)
     reqs = [Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW)
             for i, p in enumerate(prompts)]
     for r in reqs:
@@ -1654,24 +1793,26 @@ def serve_path(torch, np, layers, workdir):
             decode_s += dt    # a step that admitted nothing: decode alone
             decode_tokens += active
         if steps > 10_000:
-            fail("the batched run did not drain")
+            fail(f"[{tag}] the batched run did not drain")
     run_s = time.perf_counter() - t_run
     eng.close()
     for r in reqs:
         if not r.done or len(r.out_tokens) != SERVE_NEW:
-            fail(f"request {r.rid} ended with {len(r.out_tokens)} tokens")
+            fail(f"[{tag}] request {r.rid} ended with {len(r.out_tokens)} "
+                 f"tokens")
     agree = [int(sum(a == b for a, b in zip(r.out_tokens, s)))
              for r, s in zip(reqs, solos)]
     peak = torch.cuda.max_memory_allocated()
-    log(f"[serve] batched run: {SERVE_REQUESTS} requests (prompts "
+    log(f"[{tag}] batched run: {SERVE_REQUESTS} requests (prompts "
         f"{lens.tolist()} tokens), {SERVE_SLOTS} slots, {SERVE_NEW} new tokens "
-        f"each, max_len {SERVE_MAX_LEN}: {run_s!r} s, {steps} engine steps, "
+        f"each, max_len {max_len}: {run_s!r} s, {steps} engine steps, "
         f"{SERVE_REQUESTS * SERVE_NEW / run_s!r} tokens/s with prefills; every "
         f"request finished with {SERVE_NEW} tokens")
-    log(f"[serve] tokens agreeing with each request's solo run (information, "
-        f"not a gate: batch-{SERVE_SLOTS} bf16 matmuls may round otherwise): "
-        f"{agree} of {SERVE_NEW}")
-    log(f"[serve] prefill ms per request (one lane, prompts {lens.tolist()}): "
+    log(f"[{tag}] tokens agreeing with each request's solo run (information, "
+        f"not a gate: batch-{SERVE_SLOTS} bf16 matmuls may round otherwise, "
+        f"and a request decodes with its slot's frontend row): {agree} of "
+        f"{SERVE_NEW}")
+    log(f"[{tag}] prefill ms per request (one lane, prompts {lens.tolist()}): "
         f"{[round(m, 3) for m in prefill_ms]}; decode at {SERVE_SLOTS} slots: "
         f"{decode_tokens} tokens in {decode_s!r} s, {decode_tokens / decode_s!r} "
         f"tokens/s ({decode_s / max(1, decode_tokens) * SERVE_SLOTS * 1e3!r} ms "
@@ -1679,18 +1820,154 @@ def serve_path(torch, np, layers, workdir):
     # where the time goes: one prefill (the longest prompt) and one decode
     # step at 4 slots under torch.profiler, after the measured runs
     longest = prompts[int(lens.argmax())]
-    profile_call(torch, f"prefill of one {len(longest)}-token request",
-                 lambda: greedy(torch, tt, loaded, cfg, longest, 1,
-                                SERVE_MAX_LEN))
-    with ServeEngine(loaded, cfg, n_slots=SERVE_SLOTS,
-                     max_len=SERVE_MAX_LEN) as eng:
+    profile_call(torch, f"{tag} prefill of one {len(longest)}-token request",
+                 lambda: greedy(torch, tt, loaded, cfg, longest, 1, max_len,
+                                row0, enc_len))
+    with engine(SERVE_SLOTS) as eng:
         for i, p in enumerate(prompts[:SERVE_SLOTS]):
             eng.submit(Request(rid=i, prompt=p, max_new_tokens=SERVE_NEW))
         eng.step()  # admits every slot
         eng.step()
-        profile_call(torch, f"decode step at {SERVE_SLOTS} slots", eng.step)
+        profile_call(torch, f"{tag} decode step at {SERVE_SLOTS} slots",
+                     eng.step)
     repo.close()
     return counts, times
+
+
+# -- phase 6b: serving the other families ------------------------------------------
+
+WHISPER_FRAMES = 1500    # whisper's 30-s window after its stride-2 conv
+WHISPER_MAX_LEN = 448    # whisper's published target length
+
+
+def frontend_rows(key, n, d, dtype):
+    """A maker of SERVE_SLOTS seeded rows of an (n, d) stub-frontend input
+    (``key``) from a generator on the card."""
+    def make(gen):
+        import torch
+        return {key: torch.randn((SERVE_SLOTS, n, d), generator=gen,
+                                 device=gen.device).to(dtype)}
+    return make
+
+
+def family_configs(vlm_layers):
+    """{arch: (config, depth note, stub-frontend rows or None, enc_len,
+    max_len)} of phase 6b, at published widths (src/repro/configs/)."""
+    import dataclasses
+    from repro_torch.models import get_arch
+    from repro_torch.models.layers import dtype_of
+    vlm = get_arch("llama-3.2-vision-11b")
+    whisper = get_arch("whisper-tiny")
+    return {
+        "whisper-tiny": (
+            whisper, "published depth (4 encoder + 4 decoder layers)",
+            frontend_rows("encoder_frames", WHISPER_FRAMES, whisper.d_model,
+                          dtype_of(whisper.dtype)),
+            WHISPER_FRAMES, WHISPER_MAX_LEN),
+        "xlstm-1.3b": (
+            get_arch("xlstm-1.3b"), "published depth (48 layers: 6 "
+            "super-blocks of 7 mLSTM + 1 sLSTM)", None, 1, SERVE_MAX_LEN),
+        "zamba2-2.7b": (
+            get_arch("zamba2-2.7b"), "published depth (54 Mamba2 layers, the "
+            "shared attention block before every 6)", None, 1, SERVE_MAX_LEN),
+        "llama-3.2-vision-11b": (
+            dataclasses.replace(vlm, n_layers=vlm_layers),
+            f"depth cut to L = {vlm_layers} of 40 "
+            f"({vlm_layers // vlm.cross_attn_every} super-blocks of 1 cross "
+            f"+ 4 self; the "
+            f"run's time limit: 20.2 GB whole would add ~280 s of save and "
+            f"load and a CPU forward over 20 GB)",
+            frontend_rows("image_embeds", vlm.n_image_tokens, vlm.d_model,
+                          dtype_of(vlm.dtype)), 1, SERVE_MAX_LEN),
+    }
+
+
+def time_recurrent_parts(torch):
+    """The ssm math that phase 6b runs in plain PyTorch (no kernel of this
+    repo), timed at its serve shapes: wall ms a call (CUDA events over
+    back-to-back calls) and device ms a call (torch.profiler); their gap
+    is the host's launch path."""
+    from repro_torch.models import get_arch, ssm
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(11)
+    bf = torch.bfloat16
+
+    def rand(*shape, dtype=bf):
+        return torch.randn(shape, generator=g, device=dev).to(dtype)
+
+    def decay(*shape):
+        return torch.rand(shape, generator=g, device=dev) * 0.5 + 0.5
+    zamba, xlstm = get_arch("zamba2-2.7b"), get_arch("xlstm-1.3b")
+    _, heads, n, conv_ch = ssm.mamba2_dims(zamba)
+    p = zamba.ssm_head_dim
+    _, mh, mn, mp = ssm.mlstm_dims(xlstm)
+    conv = {"w": rand(ssm.CONV_K, conv_ch)}
+    slstm = ssm.slstm_init(g, xlstm, bf, dev)
+    t = SERVE_MAX_LEN // 2       # the longest prompt: one 128-token chunk
+    cases = {
+        f"gla_chunked, Mamba2 prefill (1, {t}, {heads}, {n}|{p})":
+            (lambda q, k, v, a: ssm.gla_chunked(q, k, v, a, t),
+             (rand(1, t, heads, n), rand(1, t, heads, n), rand(1, t, heads, p),
+              decay(1, t, heads))),
+        f"gla_chunked, mLSTM prefill (1, {t}, {mh}, {mn}|{mp + 1})":
+            (lambda q, k, v, a: ssm.gla_chunked(q, k, v, a, t),
+             (rand(1, t, mh, mn), rand(1, t, mh, mn), rand(1, t, mh, mp + 1),
+              decay(1, t, mh))),
+        f"gla_step, Mamba2 decode ({SERVE_SLOTS}, 1, {heads}, {n}|{p})":
+            (lambda q, k, v, a, s: ssm.gla_step(q, k, v, a, ssm.GLAState(s)),
+             (rand(SERVE_SLOTS, 1, heads, n), rand(SERVE_SLOTS, 1, heads, n),
+              rand(SERVE_SLOTS, 1, heads, p), decay(SERVE_SLOTS, 1, heads),
+              rand(SERVE_SLOTS, heads, n, p, dtype=torch.float32))),
+        f"gla_step, mLSTM decode ({SERVE_SLOTS}, 1, {mh}, {mn}|{mp + 1})":
+            (lambda q, k, v, a, s: ssm.gla_step(q, k, v, a, ssm.GLAState(s)),
+             (rand(SERVE_SLOTS, 1, mh, mn), rand(SERVE_SLOTS, 1, mh, mn),
+              rand(SERVE_SLOTS, 1, mh, mp + 1), decay(SERVE_SLOTS, 1, mh),
+              rand(SERVE_SLOTS, mh, mn, mp + 1, dtype=torch.float32))),
+        f"conv_apply, Mamba2 prefill (1, {t}, {conv_ch})":
+            (lambda x: ssm.conv_apply(conv, x), (rand(1, t, conv_ch),)),
+        f"conv_step, Mamba2 decode ({SERVE_SLOTS}, 1, {conv_ch})":
+            (lambda x, st: ssm.conv_step(conv, x, st),
+             (rand(SERVE_SLOTS, 1, conv_ch),
+              rand(SERVE_SLOTS, ssm.CONV_K - 1, conv_ch))),
+        f"slstm_apply, prefill of {t} tokens (1 lane, d_model "
+        f"{xlstm.d_model})":
+            (lambda x: ssm.slstm_apply(slstm, x, xlstm),
+             (rand(1, t, xlstm.d_model),)),
+        f"slstm_apply, decode ({SERVE_SLOTS} slots)":
+            (lambda x, c: ssm.slstm_apply(slstm, x, xlstm, cache=c),
+             (rand(SERVE_SLOTS, 1, xlstm.d_model),
+              ssm.slstm_cache_init(xlstm, SERVE_SLOTS, dev))),
+    }
+    for name, (fn, args) in cases.items():
+        wall = time_ms(lambda: fn(*args), 5)
+        dev_ms, rows = device_ms_per_call(torch, lambda: fn(*args), 5)
+        n_ops = sum(int(re.search(r" x(\d+): \S+ ms$", r).group(1))
+                    for r in rows) // 5
+        log(f"[time] {name}: {spread(wall)} a call, device {dev_ms!r} ms in "
+            f"{n_ops} device operations a call (plain PyTorch, no kernel)")
+
+
+def families_path(torch, np, vlm_layers, workroot):
+    """6b: each other family served from the store as phase 6 serves
+    granite. Returns {arch: (the load's launches, serve kernel timings)}."""
+    out = {}
+    for name, (cfg, depth, rows, enc_len, max_len) in family_configs(
+            vlm_layers).items():
+        workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_serve_",
+                                        dir=workroot))
+        t0 = time.perf_counter()
+        try:
+            out[name] = serve_model(torch, np, cfg, workdir, tag=f"serve {name}",
+                                    depth=depth, extra_rows=rows,
+                                    enc_len=enc_len, max_len=max_len,
+                                    check_in_f32=True)
+        finally:
+            shutil.rmtree(workdir, ignore_errors=True)
+        torch.cuda.empty_cache()
+        log(f"[serve {name}] phase 6b for {name}: "
+            f"{time.perf_counter() - t0!r} s")
+    time_recurrent_parts(torch)
+    return out
 
 
 # -- phase 7: training -----------------------------------------------------------
@@ -2132,7 +2409,7 @@ def main() -> int:
     main = main_shapes(torch, np, args.images, int(np.prod(coo_shape)), coo_nnz)
     errs = check_kernels(torch, np, kern, main)
     errs.update(check_compress_kernels(torch, np, kern, main))
-    times, dev_ms = time_kernels(torch, kern, main)
+    times, dev_ms, compress_times = time_kernels(torch, kern, main)
     time_unshuffle_hook(torch, np, kern, ops)
     time_launch_path(torch, kern, _build)
     del main
@@ -2164,6 +2441,11 @@ def main() -> int:
         shutil.rmtree(workdir, ignore_errors=True)
     torch.cuda.empty_cache()
 
+    # 6b. serving the vlm, audio, ssm and hybrid families from the store
+    families = families_path(torch, np, args.vlm_layers, workroot)
+    for name, (counts, _) in families.items():
+        paths[f"serve {name}"] = counts
+
     # 7. training granite-3-8b, with checkpoints in the store
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=workroot))
     try:
@@ -2190,10 +2472,18 @@ def main() -> int:
             s_ms, s_lib, s_bound, s_what = serve_times[name]
             row.update(serve_shape=s_what, serve_ms=s_ms[0],
                        serve_library_ms=s_lib[0], serve_bound_ms=s_bound)
+        by_family = {arch: fam_times[name] for arch, (_, fam_times)
+                     in families.items() if name in fam_times}
+        if by_family:
+            row["serve_families"] = {
+                arch: {"shape": what, "ms": ms[0], "library_ms": lib[0],
+                       "bound_ms": bound}
+                for arch, (ms, lib, bound, what) in by_family.items()}
         if name == "block_gather":
             t_ms, t_lib, t_bound, t_what = train_gather
             row.update(train_shape=t_what, train_ms=t_ms[0],
                        train_library_ms=t_lib[0], train_bound_ms=t_bound)
+            row.update(compress_times)
         rows.append(row)
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))

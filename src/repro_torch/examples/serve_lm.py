@@ -7,7 +7,11 @@ Requests with ragged prompt lengths stream through a fixed pool of slots;
 a finished sequence's slot is at once re-admitted from the queue. The
 config is the arch's ``reduced()`` twin (``--layers`` sets its depth), and
 the weights are drawn from a seeded ``torch.Generator`` on ``--device``
-(``cuda`` by default).
+(``cuda`` by default). Every arch of ``list_archs()`` serves: the vlm gets
+seeded ``image_embeds`` and the audio family seeded ``encoder_frames`` (one
+row per slot, the stub frontends' outputs), and the ssm and hybrid
+families' prompts longer than ``ssm_chunk`` are cut to a multiple of it,
+as their chunked core requires.
 
 With ``--from-store`` the weights round-trip through the Delta Tensor
 store first via ``store.models(prefix)``: saved as one FTSF tensor per
@@ -25,14 +29,15 @@ import numpy as np
 import torch
 
 from ..lake.device import resolve_device
-from ..models import get_arch, transformer
+from ..models import get_arch, list_archs, transformer
+from ..models.layers import dtype_of
 from ..serve import Request, ServeEngine
 
 
 def parse_args(argv=None):
     """The example's command line."""
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", default="granite-3-8b")
+    ap.add_argument("--arch", default="granite-3-8b", choices=list_archs())
     ap.add_argument("--requests", type=int, default=12)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--max-new", type=int, default=16)
@@ -68,11 +73,29 @@ def main(argv=None) -> None:
         print(f"weights loaded from delta store in {time.time() - t0:.2f}s "
               f"(gets={st.gets} cache_hits={st.cache_hits})")
 
-    eng = ServeEngine(params, cfg, n_slots=args.slots, max_len=128)
+    max_len = 128
+    extra, enc_len = {}, 1
+    dtype = dtype_of(cfg.dtype)
+    if cfg.family == "vlm":
+        extra["image_embeds"] = torch.randn(
+            (args.slots, cfg.n_image_tokens, cfg.d_model), generator=gen,
+            device=dev).to(dtype)
+    if cfg.family == "audio":
+        enc_len = max_len // cfg.encoder_seq_divisor
+        extra["encoder_frames"] = torch.randn(
+            (args.slots, enc_len, cfg.d_model), generator=gen,
+            device=dev).to(dtype)
+    eng = ServeEngine(params, cfg, n_slots=args.slots, max_len=max_len,
+                      extra_inputs=extra, enc_len=enc_len)
     rng = np.random.default_rng(0)
+
+    def prompt_len():
+        n = int(rng.integers(4, 24))
+        if cfg.family in ("ssm", "hybrid") and n > cfg.ssm_chunk:
+            n -= n % cfg.ssm_chunk
+        return n
     reqs = [Request(rid=i,
-                    prompt=rng.integers(0, cfg.vocab_size,
-                                        (int(rng.integers(4, 24)),)
+                    prompt=rng.integers(0, cfg.vocab_size, (prompt_len(),)
                                         ).astype(np.int32),
                     max_new_tokens=args.max_new)
             for i in range(args.requests)]

@@ -20,7 +20,7 @@ import hashlib
 import os
 import threading
 import uuid
-from collections import Counter
+from collections import Counter, deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 from typing import Any, Dict, Iterator, List, Optional, Sequence, Set, Tuple, Union
@@ -37,6 +37,9 @@ from .object_store import ObjectNotFoundError, ObjectStore
 
 # filter := {column: (lo, hi)} inclusive range; None bound = open
 Filters = Dict[str, Tuple[Optional[float], Optional[float]]]
+
+# part files that append_split encodes ahead of its upload, per thread
+AHEAD_PER_WORKER = 2
 
 
 def chunk_hash(data: bytes) -> str:
@@ -544,21 +547,34 @@ class DeltaTable:
         per_file = max(1, int(target_bytes //
                               max(approx_row_bytes(columns, rows), 1)))
         spec = parse_compression(compression)
-        windows = [slice_columns(columns, lo, min(rows, lo + per_file))
-                   for lo in range(0, rows, per_file)]
+        starts = range(0, rows, per_file)
 
-        def encode(window):
-            return _encode_part(window, spec, shuffle_itemsize, None,
+        def encode(lo):
+            return _encode_part(slice_columns(columns, lo,
+                                              min(rows, lo + per_file)),
+                                spec, shuffle_itemsize, None,
                                 hashed=cas is not None)
-        # the files encode at once (zlib and blake2b release the GIL) and
-        # upload in row order, one at a time, so content dedup and the
-        # guard see them as a serial writer would
-        workers = max(1, min(len(windows), os.cpu_count() or 1))
+        # the files encode on threads (zlib and blake2b release the GIL)
+        # and upload in row order, one at a time, so content dedup and the
+        # guard see them as a serial writer would. At most AHEAD_PER_WORKER
+        # encodes per thread run or wait ahead of the upload, which bounds
+        # the encoded parts held in host memory
+        workers = max(1, min(len(starts), os.cpu_count() or 1))
+        ahead = AHEAD_PER_WORKER * workers
+        adds: List[Dict[str, Any]] = []
         with ThreadPoolExecutor(max_workers=workers) as pool:
-            return [self._place(part, partition_values=partition_values,
-                                commit=False, guard=guard, cas=cas,
-                                dedup_seen=dedup_seen, delta_base=None)
-                    for part in pool.map(encode, windows)]
+            pending = deque(pool.submit(encode, lo) for lo in starts[:ahead])
+            nxt = iter(starts[ahead:])
+            while pending:
+                part = pending.popleft().result()
+                adds.append(self._place(part, partition_values=partition_values,
+                                        commit=False, guard=guard, cas=cas,
+                                        dedup_seen=dedup_seen, delta_base=None))
+                del part
+                lo = next(nxt, None)
+                if lo is not None:
+                    pending.append(pool.submit(encode, lo))
+        return adds
 
     def commit_adds(self, adds: List[Dict[str, Any]], *, removes: Sequence[str] = (),
                     op: str = "WRITE",

@@ -194,10 +194,9 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
 
 
 def init_kv_cache(cfg: ArchConfig, batch: int, max_len: int, dtype,
-                  device, layers: Optional[int] = None) -> KVCache:
-    """A zero cache of (B, S, Hkv, Dh), or (L, B, S, Hkv, Dh) for a stack."""
-    shape = (batch, max_len, cfg.n_kv_heads, cfg.hd)
-    if layers is not None:
-        shape = (layers,) + shape
+                  device, lead: Tuple[int, ...] = ()) -> KVCache:
+    """A zero cache of (B, S, Hkv, Dh), with the leading stack axes
+    ``lead`` (``(L,)`` for a stack of L layers)."""
+    shape = lead + (batch, max_len, cfg.n_kv_heads, cfg.hd)
     return KVCache(torch.zeros(shape, dtype=dtype, device=device),
                    torch.zeros(shape, dtype=dtype, device=device))

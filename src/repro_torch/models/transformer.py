@@ -1,19 +1,29 @@
-"""LM assembly for the attention + MLP/MoE families (``dense``, ``moe``),
-the counterpart of ``repro.models.transformer`` in plain PyTorch.
+"""LM assembly for all ten architectures, the counterpart of
+``repro.models.transformer`` in plain PyTorch.
+
+Depth is organised in *super-blocks*, as in the reference:
+
+  dense/moe     : n_layers super-blocks of 1 layer (attn + MLP/MoE)
+  vlm           : 1 cross-attn layer + (every - 1) self layers per super-block
+  hybrid/zamba2 : 1 *shared* attention block (params hoisted out of the
+                  stack, one KV cache per application) + every Mamba2
+  ssm/xlstm     : (every - 1) mLSTM + 1 sLSTM per super-block
+  audio/whisper : a bidirectional encoder, then decoder layers of
+                  self-attn + cross-attn + MLP
 
 Params are nested dicts of tensors in the reference's layout: every leaf
-of ``params["blocks"]`` carries a leading L axis (the reference scans over
-it), and :func:`forward` runs a Python loop over ``l`` on views of those
-stacked tensors, so a param tree is the same set of leaves, names and
-shapes in both packages and a stored table loads into either. Caches keep
-the same stacking: ``caches["blocks"]`` is one :class:`KVCache` of
-(L, B, S, Hkv, Dh) tensors, written in place, and ``caches["index"]`` the
-per-slot lengths (B,).
+of a stack carries the reference's leading axes, (n_super,) or (n_super,
+per) (the reference scans over them), and the runner is a Python loop over
+views of those stacked tensors. So a param tree is the same set of leaves,
+names and shapes in both packages and a stored table loads into either.
+Caches keep the same stacking and are written in place: a KV cache is a
+:class:`KVCache` of (n_super[, per], B, S, Hkv, Dh) tensors, an SSM state
+the :mod:`.ssm` NamedTuple of its stacked tensors, and ``caches["index"]``
+the per-slot lengths (B,).
 
-The ``vlm``, ``audio``, ``hybrid`` and ``ssm`` families (``models/ssm.py``)
-are not ported yet and raise ``NotImplementedError``. There is no scan,
-and the layers are not rematerialised in the backward pass (the reference
-remats each layer); only the cross-entropy's chunks are (:func:`loss_fn`).
+There is no scan, and the layers are not rematerialised in the backward
+pass (the reference remats each super-block); only the cross-entropy's
+chunks are (:func:`loss_fn`).
 """
 
 from __future__ import annotations
@@ -24,22 +34,12 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from ..tree import leaves, rebuild, tree_map
+from . import ssm
 from .attention import Index, KVCache, attn_apply, attn_init, init_kv_cache
 from .config import ArchConfig
 from .layers import (Params, dense_init, dtype_of, embed, embed_init, mlp,
                      mlp_init, rmsnorm, rmsnorm_init, unembed)
 from .moe import moe_apply, moe_init
-
-PORTED_FAMILIES = ("dense", "moe")
-
-
-def check_family(cfg: ArchConfig) -> None:
-    """Raise ``NotImplementedError`` for a family the port lacks."""
-    if cfg.family not in PORTED_FAMILIES:
-        raise NotImplementedError(
-            f"{cfg.name}: the {cfg.family!r} family is not ported yet "
-            f"(ROADMAP.md, Queue 1, item 1: the vlm, audio, hybrid and ssm "
-            f"families with models/ssm.py)")
 
 
 def _stack(trees):
@@ -48,8 +48,35 @@ def _stack(trees):
     return rebuild(trees[0], iter([torch.stack(c) for c in cols]))
 
 
+def _at(tree, *idx):
+    """``tree`` with every leaf indexed by ``idx`` (views)."""
+    return tree_map(lambda v: v[idx], tree)
+
+
+# ---------------------------------------------------------------------------
+# super-block geometry
+# ---------------------------------------------------------------------------
+
+
+def superblock_plan(cfg: ArchConfig) -> Tuple[int, int]:
+    """(n_super, layers_per_super) for the main stack."""
+    every = {"vlm": cfg.cross_attn_every, "hybrid": cfg.shared_attn_every,
+             "ssm": cfg.xlstm_slstm_every}.get(cfg.family, 0)
+    if not every:
+        return cfg.n_layers, 1
+    if cfg.n_layers % every:
+        raise ValueError(f"{cfg.name}: {cfg.n_layers} layers are not a "
+                         f"multiple of the super-block's {every}")
+    return cfg.n_layers // every, every
+
+
+# ---------------------------------------------------------------------------
+# per-family layer init
+# ---------------------------------------------------------------------------
+
+
 def _attn_mlp_layer_init(gen, cfg: ArchConfig, dtype, device,
-                         use_moe: bool) -> Params:
+                         use_moe: bool, cross: bool = False) -> Params:
     p: Params = {"ln1": rmsnorm_init(cfg.d_model, dtype, device),
                  "attn": attn_init(gen, cfg, dtype, device),
                  "ln2": rmsnorm_init(cfg.d_model, dtype, device)}
@@ -57,6 +84,9 @@ def _attn_mlp_layer_init(gen, cfg: ArchConfig, dtype, device,
         p["moe"] = moe_init(gen, cfg, dtype, device)
     else:
         p["mlp"] = mlp_init(gen, cfg.d_model, cfg.d_ff, dtype, device)
+    if cross:
+        p["ln_cross"] = rmsnorm_init(cfg.d_model, dtype, device)
+        p["cross"] = attn_init(gen, cfg, dtype, device)
     return p
 
 
@@ -64,7 +94,6 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
                 device: Any = "cuda") -> Params:
     """Random params drawn from ``gen`` on ``device`` (``"meta"`` gives a
     template of shapes and dtypes for :meth:`ModelRepo.load`)."""
-    check_family(cfg)
     dtype = dtype_of(cfg.dtype)
     params: Params = {
         "embed": embed_init(gen, cfg.vocab_size, cfg.d_model, dtype, device),
@@ -73,28 +102,100 @@ def init_params(cfg: ArchConfig, gen: Optional[torch.Generator] = None, *,
     if not cfg.tie_embeddings:
         params["unembed"] = dense_init(gen, cfg.d_model, cfg.vocab_size,
                                        dtype, device)
-    params["blocks"] = _stack([
-        _attn_mlp_layer_init(gen, cfg, dtype, device, cfg.family == "moe")
-        for _ in range(cfg.n_layers)])
+    n_super, per = superblock_plan(cfg)
+    fam = cfg.family
+
+    def stack(fn, n):
+        return _stack([fn() for _ in range(n)])
+
+    def attn_mlp(**kw):
+        return _attn_mlp_layer_init(gen, cfg, dtype, device,
+                                    use_moe=fam == "moe", **kw)
+
+    def layer(init):
+        return lambda: init(gen, cfg, dtype, device)
+
+    if fam in ("dense", "moe"):
+        params["blocks"] = stack(attn_mlp, n_super)
+    elif fam == "vlm":
+        params["cross_blocks"] = stack(lambda: attn_mlp(cross=True), n_super)
+        params["blocks"] = stack(lambda: stack(attn_mlp, per - 1), n_super)
+    elif fam == "hybrid":
+        params["shared_attn"] = attn_mlp()
+        params["blocks"] = stack(lambda: stack(layer(ssm.mamba2_init), per),
+                                 n_super)
+    elif fam == "ssm" and cfg.xlstm_slstm_every:
+        params["blocks"] = stack(lambda: stack(layer(ssm.mlstm_init), per - 1),
+                                 n_super)
+        params["slstm_blocks"] = stack(layer(ssm.slstm_init), n_super)
+    elif fam == "ssm":
+        params["blocks"] = stack(layer(ssm.mlstm_init), n_super)
+    elif fam == "audio":
+        params["enc_blocks"] = stack(attn_mlp, cfg.n_encoder_layers)
+        params["enc_norm"] = rmsnorm_init(cfg.d_model, dtype, device)
+        params["blocks"] = stack(lambda: attn_mlp(cross=True), n_super)
+    else:
+        raise ValueError(f"unknown family {fam}")
     return params
 
 
 def init_caches(cfg: ArchConfig, batch: int, max_len: int, *,
-                device: Any = "cuda") -> Dict[str, Any]:
-    """Zero KV caches for ``batch`` slots of ``max_len`` positions."""
-    check_family(cfg)
-    return {"index": torch.zeros((batch,), dtype=torch.int32, device=device),
-            "blocks": init_kv_cache(cfg, batch, max_len, dtype_of(cfg.dtype),
-                                    device, layers=cfg.n_layers)}
+                enc_len: int = 1, device: Any = "cuda") -> Dict[str, Any]:
+    """Zero caches for ``batch`` slots of ``max_len`` positions (and, for
+    the audio family, an ``enc_out`` of ``enc_len`` encoder states)."""
+    dtype = dtype_of(cfg.dtype)
+    n_super, per = superblock_plan(cfg)
+    fam = cfg.family
+
+    def kv(*lead):
+        return init_kv_cache(cfg, batch, max_len, dtype, device, lead=lead)
+
+    caches: Dict[str, Any] = {
+        "index": torch.zeros((batch,), dtype=torch.int32, device=device)}
+    if fam in ("dense", "moe", "audio"):
+        caches["blocks"] = kv(n_super)
+    elif fam == "vlm":
+        caches["cross_blocks"] = kv(n_super)
+        caches["blocks"] = kv(n_super, per - 1)
+    elif fam == "hybrid":
+        caches["shared_attn"] = kv(n_super)
+        caches["blocks"] = ssm.mamba2_cache_init(cfg, batch, dtype, device,
+                                                 lead=(n_super, per))
+    elif fam == "ssm" and cfg.xlstm_slstm_every:
+        caches["blocks"] = ssm.mlstm_cache_init(cfg, batch, device,
+                                                lead=(n_super, per - 1))
+        caches["slstm_blocks"] = ssm.slstm_cache_init(cfg, batch, device,
+                                                      lead=(n_super,))
+    elif fam == "ssm":
+        caches["blocks"] = ssm.mlstm_cache_init(cfg, batch, device,
+                                                lead=(n_super,))
+    else:
+        raise ValueError(f"unknown family {fam}")
+    if fam == "audio":
+        caches["enc_out"] = torch.zeros((batch, enc_len, cfg.d_model),
+                                        dtype=dtype, device=device)
+    return caches
+
+
+# ---------------------------------------------------------------------------
+# layer application and the stack runner
+# ---------------------------------------------------------------------------
 
 
 def _apply_attn_mlp(pl: Params, x, cfg: ArchConfig, positions, *,
-                    use_moe: bool, window=None,
-                    cache: Optional[KVCache] = None, cache_index=None):
+                    use_moe: bool, causal: bool = True, window=None,
+                    cache: Optional[KVCache] = None, cache_index=None,
+                    cross_kv: Optional[torch.Tensor] = None):
     h, _ = attn_apply(pl["attn"], rmsnorm(pl["ln1"], x, cfg.norm_eps), cfg,
-                      positions=positions, window=window, cache=cache,
-                      cache_index=cache_index)
+                      positions=positions, causal=causal, window=window,
+                      cache=cache, cache_index=cache_index)
     x = x + h
+    if cross_kv is not None:
+        hc, _ = attn_apply(pl["cross"], rmsnorm(pl["ln_cross"], x,
+                                                cfg.norm_eps),
+                           cfg, positions=positions, kv_x=cross_kv,
+                           causal=False, use_rope=False)
+        x = x + hc
     aux = torch.zeros((), dtype=torch.float32, device=x.device)
     if use_moe:
         h2, aux = moe_apply(pl["moe"], rmsnorm(pl["ln2"], x, cfg.norm_eps), cfg)
@@ -103,13 +204,102 @@ def _apply_attn_mlp(pl: Params, x, cfg: ArchConfig, positions, *,
     return x + h2, aux
 
 
+def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
+               *, caches: Optional[Dict[str, Any]], cache_index,
+               cross_kv: Optional[torch.Tensor]
+               ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The main stack over ``x`` (B, T, D): (x', aux). Caches are written
+    in place."""
+    fam = cfg.family
+    n_super, per = superblock_plan(cfg)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    use_cache = caches is not None
+
+    def cache_at(key, *idx):
+        return _at(caches[key], *idx) if use_cache else None
+
+    def attn_mlp(pl, x, cache, **kw):
+        return _apply_attn_mlp(pl, x, cfg, positions, use_moe=False,
+                               cache=cache, cache_index=cache_index, **kw)[0]
+
+    def recurrent(apply, pl, x, cache):
+        dx, new = apply(pl, x, cfg, cache=cache)
+        if cache is not None:   # the new state into the stacked views
+            for view, leaf in zip(cache, new):
+                view.copy_(leaf)
+        return x + dx
+
+    if fam in ("dense", "moe"):
+        for l in range(n_super):
+            pl = tree_map(lambda v: v[l], params["blocks"])
+            cache = None
+            if use_cache:
+                cache = KVCache(caches["blocks"].k[l], caches["blocks"].v[l])
+            x, a = _apply_attn_mlp(pl, x, cfg, positions,
+                                   use_moe=fam == "moe", window=cfg.window,
+                                   cache=cache, cache_index=cache_index)
+            aux = aux + a
+    elif fam == "vlm":
+        for i in range(n_super):
+            x = attn_mlp(_at(params["cross_blocks"], i), x,
+                         cache_at("cross_blocks", i), cross_kv=cross_kv)
+            for j in range(per - 1):
+                x = attn_mlp(_at(params["blocks"], i, j), x,
+                             cache_at("blocks", i, j))
+    elif fam == "hybrid":
+        for i in range(n_super):
+            x = attn_mlp(params["shared_attn"], x, cache_at("shared_attn", i))
+            for j in range(per):
+                x = recurrent(ssm.mamba2_apply, _at(params["blocks"], i, j),
+                              x, cache_at("blocks", i, j))
+    elif fam == "ssm" and cfg.xlstm_slstm_every:
+        for i in range(n_super):
+            for j in range(per - 1):
+                x = recurrent(ssm.mlstm_apply, _at(params["blocks"], i, j),
+                              x, cache_at("blocks", i, j))
+            x = recurrent(ssm.slstm_apply, _at(params["slstm_blocks"], i), x,
+                          cache_at("slstm_blocks", i))
+    elif fam == "ssm":
+        for i in range(n_super):
+            x = recurrent(ssm.mlstm_apply, _at(params["blocks"], i), x,
+                          cache_at("blocks", i))
+    elif fam == "audio":
+        for i in range(n_super):
+            x = attn_mlp(_at(params["blocks"], i), x, cache_at("blocks", i),
+                         cross_kv=cross_kv)
+    else:
+        raise ValueError(f"unknown family {fam}")
+    return x, aux
+
+
+def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor
+            ) -> torch.Tensor:
+    """frames (B, T_enc, D), the stub frontend's embeddings -> the encoder's
+    states after ``enc_norm`` (bidirectional self-attention layers)."""
+    x = frames
+    positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    for l in range(cfg.n_encoder_layers):
+        x, _ = _apply_attn_mlp(_at(params["enc_blocks"], l), x, cfg,
+                               positions, use_moe=False, causal=False)
+    return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+
+
+# ---------------------------------------------------------------------------
+# public entry points
+# ---------------------------------------------------------------------------
+
+
 def _backbone(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+              image_embeds: Optional[torch.Tensor] = None,
+              encoder_frames: Optional[torch.Tensor] = None,
               caches: Optional[Dict[str, Any]] = None,
               cache_index: Optional[Index] = None,
               ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """tokens (B, T) -> (hidden (B, T, D) after the final norm, caches',
-    aux)."""
-    check_family(cfg)
+    aux). ``image_embeds`` (vlm) and ``encoder_frames`` (audio) are the stub
+    frontends' outputs, (B, n, D) each. An audio call with caches and no
+    frames reads the encoder states from ``caches["enc_out"]``; one with
+    frames encodes them and stores the result there."""
     x = embed(params["embed"], tokens)
     t = tokens.shape[1]
     steps = torch.arange(t, device=tokens.device)
@@ -118,17 +308,23 @@ def _backbone(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         positions = base[:, None].long() + steps[None, :]  # per slot
     else:
         positions = (int(base) + steps).expand(tokens.shape)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
-    for l in range(cfg.n_layers):
-        pl = tree_map(lambda v: v[l], params["blocks"])
-        cache = None
-        if caches is not None:
-            cache = KVCache(caches["blocks"].k[l], caches["blocks"].v[l])
-        x, a = _apply_attn_mlp(pl, x, cfg, positions,
-                               use_moe=cfg.family == "moe",
-                               window=cfg.window, cache=cache,
-                               cache_index=cache_index)
-        aux = aux + a
+    cross_kv = None
+    if cfg.family == "vlm":
+        if image_embeds is None:
+            raise ValueError("the vlm family needs image_embeds (stub frontend)")
+        cross_kv = image_embeds
+    elif cfg.family == "audio":
+        if caches is not None and encoder_frames is None:
+            cross_kv = caches["enc_out"]
+        elif encoder_frames is None:
+            raise ValueError("the audio family needs encoder_frames (stub "
+                             "frontend) or caches holding enc_out")
+        else:
+            cross_kv = _encode(params, cfg, encoder_frames)
+            if caches is not None:
+                caches = dict(caches, enc_out=cross_kv)
+    x, aux = _run_stack(params, cfg, x, positions, caches=caches,
+                        cache_index=cache_index, cross_kv=cross_kv)
     h = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     new_caches = caches
     if caches is not None and cache_index is not None:
@@ -144,7 +340,7 @@ def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, **kw
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """tokens (B, T) -> (logits (B, T, V) f32, caches', aux loss); ``kw``:
     ``caches`` and ``cache_index`` (see :func:`prefill`,
-    :func:`decode_step`)."""
+    :func:`decode_step`), ``image_embeds`` / ``encoder_frames``."""
     h, new_caches, aux = _backbone(params, cfg, tokens, **kw)
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed(table, h, tied=cfg.tie_embeddings), new_caches, aux
@@ -181,23 +377,28 @@ def _chunked_ce(h: torch.Tensor, table: torch.Tensor, tied: bool,
 
 def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
             ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
-    """``batch`` {"tokens", "labels"} (B, T), labels -1 where masked ->
+    """``batch`` {"tokens", "labels"} (B, T), labels -1 where masked, and
+    the vlm's ``image_embeds`` / the audio family's ``encoder_frames`` ->
     (total = loss + 0.01 aux, {"loss", "aux"})."""
-    h, _, aux = _backbone(params, cfg, batch["tokens"])
+    h, _, aux = _backbone(params, cfg, batch["tokens"],
+                          image_embeds=batch.get("image_embeds"),
+                          encoder_frames=batch.get("encoder_frames"))
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     loss = _chunked_ce(h, table, cfg.tie_embeddings, batch["labels"])
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def prefill(params, cfg, tokens, caches):
-    """Fill empty ``caches`` with ``tokens`` (B, T) from position 0."""
-    return forward(params, cfg, tokens, caches=caches, cache_index=0)
+def prefill(params, cfg, tokens, caches, **kw):
+    """Fill empty ``caches`` with ``tokens`` (B, T) from position 0; ``kw``:
+    the frontends' ``image_embeds`` / ``encoder_frames``."""
+    return forward(params, cfg, tokens, caches=caches, cache_index=0, **kw)
 
 
-def decode_step(params, cfg, token, caches):
-    """token: (B, 1); the caches carry their own per-slot index."""
+def decode_step(params, cfg, token, caches, **kw):
+    """token: (B, 1); the caches carry their own per-slot index; ``kw`` as
+    for :func:`prefill`."""
     return forward(params, cfg, token, caches=caches,
-                   cache_index=caches["index"])
+                   cache_index=caches["index"], **kw)
 
 
 def param_count(params: Params) -> int:

@@ -3,18 +3,25 @@ batching, the port of ``repro.serve.engine``.
 
 Slots are fixed. A finished sequence frees its slot, and the engine at once
 prefills the next queued request on a 1-lane cache and splices that lane
-into the slot: with the cache layout (L, B, S, Hkv, Dh) the splice is one
-index copy on dim 1. Decode is one batched step for every slot, whatever
-the request boundaries, with per-slot cache lengths, and one host sync per
+into the slot, leaf by leaf: the batch axis of a stacked cache leaf is the
+first axis where the lane's shape differs, and the splice is one copy into
+that axis's slot (a lane whose shapes all equal the cache's, with one slot,
+replaces it). Decode is one batched step for every slot, whatever the
+request boundaries, with per-slot cache lengths, and one host sync per
 step (the argmax). Token ids and lengths reach the card through pinned
 buffers without a sync of their own.
+
+The ``vlm`` and ``audio`` families take their stub frontends' outputs as
+``extra_inputs`` ({"image_embeds"} or {"encoder_frames"}, (rows, n, D)
+each), as the reference does: a prefill gets row 0 of each, whatever the
+slot, and a decode step rows ``[:n_slots]``. An audio engine given
+``encoder_frames`` encodes them again at every decode step.
 
 Weights live in the store as one FTSF tensor per param leaf, managed
 through :class:`~repro_torch.serve.repo.ModelRepo`
 (``store.models(prefix)``). The free functions :func:`save_weights` /
 :func:`load_weights` are deprecated shims over that handle, as in the
-reference. The ``vlm`` and ``audio`` families' extra inputs are not here:
-their models are not ported yet.
+reference.
 """
 
 from __future__ import annotations
@@ -23,7 +30,7 @@ import queue
 import warnings
 import weakref
 from dataclasses import dataclass, field
-from typing import Any, List, Optional
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 import torch
@@ -32,7 +39,7 @@ from ..core.store import DeltaTensorStore
 from ..lake.io import ReadExecutor
 from ..models import transformer
 from ..models.config import ArchConfig
-from ..tree import leaves
+from ..tree import leaves, rebuild
 from .repo import ModelRepo
 
 
@@ -83,14 +90,17 @@ class ServeEngine:
     """
 
     def __init__(self, params, cfg: ArchConfig, *, n_slots: int, max_len: int,
-                 repo: Optional[ModelRepo] = None):
-        transformer.check_family(cfg)
+                 extra_inputs: Optional[Dict[str, Any]] = None,
+                 enc_len: int = 1, repo: Optional[ModelRepo] = None):
         self.params = params
         self.cfg = cfg
         self.n_slots = n_slots
         self.max_len = max_len
+        self.enc_len = enc_len
+        self.extra = extra_inputs or {}
         self.device = leaves(params)[0][1].device
         self.caches = transformer.init_caches(cfg, n_slots, max_len,
+                                              enc_len=enc_len,
                                               device=self.device)
         self.slot_req: List[Optional[Request]] = [None] * n_slots
         self.slot_len = np.zeros(n_slots, np.int32)
@@ -111,12 +121,13 @@ class ServeEngine:
 
     @classmethod
     def from_repo(cls, repo: ModelRepo, template: Any, cfg: ArchConfig, *,
-                  n_slots: int, max_len: int) -> "ServeEngine":
+                  n_slots: int, max_len: int, **kwargs) -> "ServeEngine":
         """Build an engine whose weights load from ``repo`` onto its
         store's device (one merged fetch plan); the engine owns the handle
         and releases its snapshot lease on ``close()``."""
         params = repo.load(template)
-        return cls(params, cfg, n_slots=n_slots, max_len=max_len, repo=repo)
+        return cls(params, cfg, n_slots=n_slots, max_len=max_len, repo=repo,
+                   **kwargs)
 
     def close(self) -> None:
         """Release engine resources (idempotent): drop queued and in-slot
@@ -157,18 +168,34 @@ class ServeEngine:
             t = len(req.prompt)
             # single-request prefill on a 1-lane cache, spliced into slot s
             lane = transformer.init_caches(self.cfg, 1, self.max_len,
+                                           enc_len=self.enc_len,
                                            device=self.device)
             tok = torch.as_tensor(np.asarray(req.prompt, np.int64)[None]
                                   ).to(self.device)
+            extra = {k: v[:1] for k, v in self.extra.items()}
             logits, lane, _ = transformer.prefill(self.params, self.cfg, tok,
-                                                  lane)
+                                                  lane, **extra)
             req.out_tokens.append(int(logits[0, -1].argmax()))
-            blocks = self.caches["blocks"]
-            blocks.k[:, s] = lane["blocks"].k[:, 0]
-            blocks.v[:, s] = lane["blocks"].v[:, 0]
+            self.caches = rebuild(self.caches, iter([
+                self._splice(full, one, s) for (_, full), (_, one)
+                in zip(leaves(self.caches), leaves(lane))]))
             self.slot_req[s] = req
             # cache holds t entries; the pending token writes at index t
             self.slot_len[s] = t
+
+    def _splice(self, full: torch.Tensor, one: torch.Tensor,
+                s: int) -> torch.Tensor:
+        """The cache leaf ``full`` with the 1-lane leaf ``one`` in slot
+        ``s``, written in place: the batch axis is the first axis where
+        the shapes differ (stacked leaves carry leading layer axes). A lane
+        of the same shape replaces the leaf with one slot (and is dropped
+        with several, as in the reference)."""
+        if full.shape == one.shape:
+            return one if self.n_slots == 1 else full
+        axis = next(d for d in range(full.ndim)
+                    if full.shape[d] != one.shape[d])
+        full.narrow(axis, s, 1).copy_(one)
+        return full
 
     # -- decode loop -----------------------------------------------------------
 
@@ -186,7 +213,8 @@ class ServeEngine:
         self.caches["index"] = self._len_host.to(self.device, non_blocking=True)
         logits, self.caches, _ = transformer.decode_step(
             self.params, self.cfg,
-            self._tok_host.to(self.device, non_blocking=True), self.caches)
+            self._tok_host.to(self.device, non_blocking=True), self.caches,
+            **{k: v[:self.n_slots] for k, v in self.extra.items()})
         nxt = logits[:, 0].argmax(dim=-1).cpu().numpy()  # the step's sync
         for s in active:
             req = self.slot_req[s]

@@ -289,6 +289,61 @@ def test_parallel_part_encode_writes_the_serial_bytes(compression, monkeypatch):
     assert len(out[0]) > 8 and out[0] == out[1]
 
 
+@pytest.mark.parametrize("cpus", [1, 2, 3])
+def test_part_encodes_ahead_of_the_upload_are_bounded(cpus, monkeypatch):
+    """At most ``AHEAD_PER_WORKER`` encoded parts per thread are held
+    between their encode and their upload, however slow the uploads; the
+    add-actions (in row order, paths aside) and the stored bytes are a
+    serial writer's."""
+    import threading
+    import time
+    x = np.random.default_rng(1).standard_normal((48, 500)).astype(np.float32)
+    live, peak, lock = [0], [0], threading.Lock()
+    real_encode, real_place = table_mod._encode_part, table_mod.DeltaTable._place
+    real_split = table_mod.DeltaTable.append_split
+
+    def encode(*args, **kw):
+        part = real_encode(*args, **kw)
+        with lock:
+            live[0] += 1
+            peak[0] = max(peak[0], live[0])
+        return part
+
+    def place(self, part, **kw):
+        time.sleep(0.002)          # an upload slower than an encode
+        add = real_place(self, part, **kw)
+        with lock:
+            live[0] -= 1
+        return add
+
+    def split(self, *args, **kw):
+        adds = real_split(self, *args, **kw)
+        runs[-1].append(adds)
+        return adds
+
+    monkeypatch.setattr(table_mod.DeltaTable, "append_split", split)
+    runs = []
+    for n_cpus, spy in ((1, False), (cpus, True)):
+        monkeypatch.setattr(table_mod.os, "cpu_count", lambda: n_cpus)
+        if spy:
+            monkeypatch.setattr(table_mod, "_encode_part", encode)
+            monkeypatch.setattr(table_mod.DeltaTable, "_place", place)
+        runs.append([])
+        obj = InMemoryObjectStore()
+        store = DeltaTensorStore(obj, "t", compression="zlib+shuffle",
+                                 device=CPU)
+        store.put(x, tensor_id="x", layout="ftsf", chunk_dims=1,
+                  target_file_bytes=2000)
+        runs[-1] = [[(dict((k, v) for k, v in a.items() if k != "path"),
+                      obj.get(f"t/{table_mod.physical_path(a)}"))
+                     for a in adds] for adds in runs[-1]]
+        assert_same_bytes(store.get("x"), x)
+    assert runs[0] == runs[1]
+    assert sum(len(adds) for adds in runs[1]) == 49   # 48 rows + a header
+    assert live[0] == 0
+    assert 1 <= peak[0] <= table_mod.AHEAD_PER_WORKER * cpus
+
+
 # -- retention (tests/test_maintenance.py on the port) ------------------------
 
 

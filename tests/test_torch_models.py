@@ -1,14 +1,18 @@
 """The port's models (``repro_torch.models``) against the JAX package.
 
-For the ``reduced()`` config of each of the six ``dense`` / ``moe`` archs,
-the same params (the reference's ``init_params``, carried over with
-``params_from_numpy``) and the same numpy tokens go through both packages
-on the CPU. Reduced configs are f32. Logits are held to
+For the ``reduced()`` config of each of the ten archs (every family:
+``dense``, ``moe``, ``vlm``, ``audio``, ``hybrid``, ``ssm``), the same
+params (the reference's ``init_params``, carried over with
+``params_from_numpy``), the same numpy tokens and the same stub-frontend
+inputs (``image_embeds``, ``encoder_frames``) go through both packages on
+the CPU. Reduced configs are f32. Logits and cache leaves are held to
 ``rtol = atol = 1e-4``: the reference's prefill runs a chunked online
 softmax and XLA sums in another order, so the two differ in the last bits
 of f32; greedy tokens must be identical. Data movement that involves no
-arithmetic (MoE routing indices, param leaf names and shapes) is compared
-exactly.
+arithmetic (MoE routing indices, param and cache leaf names and shapes,
+cache indices) is compared exactly. Prompts of the ssm and hybrid families
+are multiples of, or shorter than, ``ssm_chunk`` (8 when reduced), as
+their chunked core requires in both packages.
 """
 
 import dataclasses
@@ -28,16 +32,16 @@ from repro.models import transformer as jt
 from repro_torch.models import attention, get_arch, layers, list_archs, moe
 from repro_torch.models import transformer as tt
 from repro_torch.serve import ServeEngine
-from repro_torch.tree import leaves, params_from_numpy, params_to_numpy
+from repro_torch.tree import leaves, params_from_numpy, params_to_numpy, to_numpy
 
 from .test_torch_kernels import assert_same_bytes
 
 RTOL = ATOL = 1e-4
 CPU = "cpu"
-PORTED = ["glm4-9b", "granite-3-8b", "granite-moe-1b-a400m", "h2o-danube-3-4b",
-          "mixtral-8x22b", "phi3-mini-3.8b"]
-UNPORTED = ["llama-3.2-vision-11b", "whisper-tiny", "xlstm-1.3b",
-            "zamba2-2.7b"]
+ALL = ["glm4-9b", "granite-3-8b", "granite-moe-1b-a400m", "h2o-danube-3-4b",
+       "llama-3.2-vision-11b", "mixtral-8x22b", "phi3-mini-3.8b",
+       "whisper-tiny", "xlstm-1.3b", "zamba2-2.7b"]
+ENC_LEN = 12   # encoder frames of the reduced whisper in these tests
 
 
 def cfgs(name):
@@ -56,16 +60,52 @@ def tokens(cfg, shape, seed=0):
         0, cfg.vocab_size, shape).astype(np.int32)
 
 
+def extras(cfg, b, seed=0):
+    """The stub frontends' inputs of ``cfg``'s family, b rows each: (for
+    the reference, for the port, for decode steps of the reference, for
+    decode steps of the port). An audio decode step reads the encoder
+    states from the caches."""
+    rng = np.random.default_rng(seed + 100)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["image_embeds"] = rng.standard_normal(
+            (b, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        kw["encoder_frames"] = rng.standard_normal(
+            (b, ENC_LEN, cfg.d_model)).astype(np.float32)
+    jkw = {k: jnp.asarray(v) for k, v in kw.items()}
+    tkw = {k: torch.from_numpy(v) for k, v in kw.items()}
+    dec = ("image_embeds",)
+    return (jkw, tkw, {k: v for k, v in jkw.items() if k in dec},
+            {k: v for k, v in tkw.items() if k in dec})
+
+
 def jitted(cfg):
     """The reference's prefill and decode step, jitted once per test (the
-    reference engine jits them too): (prefill, decode_step)."""
-    return (jax.jit(lambda p, tok, c: jt.prefill(p, cfg, tok, c)),
-            jax.jit(lambda p, tok, c: jt.decode_step(p, cfg, tok, c)))
+    reference engine jits them too): (prefill, decode_step), each called
+    as ``fn(params, tokens, caches[, extra_inputs])``."""
+    return (jax.jit(lambda p, tok, c, kw=None: jt.prefill(
+                p, cfg, tok, c, **(kw or {}))),
+            jax.jit(lambda p, tok, c, kw=None: jt.decode_step(
+                p, cfg, tok, c, **(kw or {}))))
 
 
 def close(got, want):
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
+    np.testing.assert_allclose(to_numpy(got.detach()), np.asarray(want),
                                rtol=RTOL, atol=ATOL)
+
+
+def close_caches(got, want):
+    """Every cache leaf: names and dtypes equal, the index exactly, the
+    rest within the tolerance."""
+    g, w = leaves(got), leaves(jax.tree.map(np.asarray, want))
+    assert [n for n, _ in g] == [n for n, _ in w]
+    for (n, a), (_, b) in zip(g, w):
+        assert str(to_numpy(a).dtype) == str(b.dtype), n
+        if n == "index":
+            np.testing.assert_array_equal(a.numpy(), b)
+        else:
+            close(a, b)
 
 
 def test_configs_are_a_copy():
@@ -77,13 +117,13 @@ def test_configs_are_a_copy():
             dataclasses.asdict(jget_arch(name).reduced())
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", ALL)
 def test_param_tree_names_shapes_dtypes_match_at_full_size(name):
-    """Published widths on the meta device against the reference's
-    eval_shape: same leaf names, shapes, dtypes; same counts."""
+    """Published widths and depth on the meta device against the
+    reference's eval_shape: same leaf names, shapes, dtypes; same counts;
+    the same cache tree (4 slots of 256 positions, 1500 encoder states)."""
     jcfg, cfg = jget_arch(name), get_arch(name)
-    cfg = dataclasses.replace(cfg, n_layers=2)
-    jcfg = dataclasses.replace(jcfg, n_layers=2)
+    assert tt.superblock_plan(cfg) == jt.superblock_plan(jcfg)
     want = jax.eval_shape(lambda: jt.init_params(jcfg, jax.random.key(0)))
     got = tt.init_params(cfg, device="meta")
     flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
@@ -94,67 +134,79 @@ def test_param_tree_names_shapes_dtypes_match_at_full_size(name):
         assert str(g.dtype).split(".")[-1] == str(w.dtype)
     assert tt.param_count(got) == jt.param_count(want)
     assert tt.active_param_count(got, cfg) == jt.active_param_count(want, jcfg)
+    want = jax.eval_shape(lambda: jt.init_caches(jcfg, 4, 256, enc_len=1500))
+    got = tt.init_caches(cfg, 4, 256, enc_len=1500, device="meta")
+    flat_w = jax.tree_util.tree_flatten_with_path(want)[0]
+    assert [n for n, _ in leaves(got)] == [
+        "/".join(str(getattr(k, "key", getattr(k, "name", k))) for k in path)
+        for path, _ in flat_w]
+    for (_, g), (_, w) in zip(leaves(got), flat_w):
+        assert (tuple(g.shape), str(g.dtype).split(".")[-1]) == \
+            (w.shape, str(w.dtype))
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", ALL)
 def test_forward_logits_match(name):
     jcfg, cfg = cfgs(name)
     jp, tp = same_params(jcfg)
     tok = tokens(jcfg, (2, 24))
-    lj, _, aux_j = jt.forward(jp, jcfg, jnp.asarray(tok))
-    lt, _, aux_t = tt.forward(tp, cfg, torch.from_numpy(tok).long())
+    jkw, tkw, _, _ = extras(jcfg, 2)
+    lj, _, aux_j = jt.forward(jp, jcfg, jnp.asarray(tok), **jkw)
+    lt, _, aux_t = tt.forward(tp, cfg, torch.from_numpy(tok).long(), **tkw)
     close(lt, lj)
     np.testing.assert_allclose(float(aux_t), float(aux_j), rtol=RTOL)
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", ALL)
 def test_prefill_then_greedy_decode_matches(name):
     jcfg, cfg = cfgs(name)
     jp, tp = same_params(jcfg, seed=1)
     tok = tokens(jcfg, (2, 7), seed=1)
-    cj = jt.init_caches(jcfg, 2, 32)
-    ct = tt.init_caches(cfg, 2, 32, device=CPU)
+    jkw, tkw, jdkw, tdkw = extras(jcfg, 2, seed=1)
+    cj = jt.init_caches(jcfg, 2, 32, enc_len=ENC_LEN)
+    ct = tt.init_caches(cfg, 2, 32, enc_len=ENC_LEN, device=CPU)
     jprefill, jdecode = jitted(jcfg)
-    lj, cj, _ = jprefill(jp, jnp.asarray(tok), cj)
-    lt, ct, _ = tt.prefill(tp, cfg, torch.from_numpy(tok).long(), ct)
+    lj, cj, _ = jprefill(jp, jnp.asarray(tok), cj, jkw)
+    lt, ct, _ = tt.prefill(tp, cfg, torch.from_numpy(tok).long(), ct, **tkw)
     close(lt, lj)
     nj, nt = np.asarray(jnp.argmax(lj[:, -1], -1)), lt[:, -1].argmax(-1)
     greedy_j, greedy_t = [nj], [nt.numpy()]
     for _ in range(4):
-        lj, cj, _ = jdecode(jp, jnp.asarray(nj[:, None]), cj)
-        lt, ct, _ = tt.decode_step(tp, cfg, nt[:, None], ct)
+        lj, cj, _ = jdecode(jp, jnp.asarray(nj[:, None]), cj, jdkw)
+        lt, ct, _ = tt.decode_step(tp, cfg, nt[:, None], ct, **tdkw)
         close(lt, lj)
         nj, nt = np.asarray(jnp.argmax(lj[:, 0], -1)), lt[:, 0].argmax(-1)
         greedy_j.append(nj)
         greedy_t.append(nt.numpy())
     np.testing.assert_array_equal(np.stack(greedy_t), np.stack(greedy_j))
-    np.testing.assert_array_equal(ct["index"].numpy(), np.asarray(cj["index"]))
-    close(ct["blocks"].k, cj["blocks"].k)
-    close(ct["blocks"].v, cj["blocks"].v)
+    close_caches(ct, cj)
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", ALL)
 def test_per_slot_decode_with_ragged_index(name):
     """Continuous batching's decode: every slot at its own length."""
     jcfg, cfg = cfgs(name)
     jp, tp = same_params(jcfg, seed=2)
-    tok = tokens(jcfg, (3, 9), seed=2)
-    cj = jt.init_caches(jcfg, 3, 24)
-    ct = tt.init_caches(cfg, 3, 24, device=CPU)
+    t = 8 if cfg.family in ("ssm", "hybrid") else 9   # a whole ssm chunk
+    tok = tokens(jcfg, (3, t), seed=2)
+    jkw, tkw, jdkw, tdkw = extras(jcfg, 3, seed=2)
+    cj = jt.init_caches(jcfg, 3, 24, enc_len=ENC_LEN)
+    ct = tt.init_caches(cfg, 3, 24, enc_len=ENC_LEN, device=CPU)
     jprefill, jdecode = jitted(jcfg)
-    _, cj, _ = jprefill(jp, jnp.asarray(tok), cj)
-    _, ct, _ = tt.prefill(tp, cfg, torch.from_numpy(tok).long(), ct)
-    ragged = np.array([9, 4, 7], np.int32)
+    _, cj, _ = jprefill(jp, jnp.asarray(tok), cj, jkw)
+    _, ct, _ = tt.prefill(tp, cfg, torch.from_numpy(tok).long(), ct, **tkw)
+    ragged = np.array([t, 4, 7], np.int32)
     cj = dict(cj, index=jnp.asarray(ragged))
     ct = dict(ct, index=torch.from_numpy(ragged))
     step = tokens(jcfg, (3, 1), seed=3)
     for _ in range(3):
-        lj, cj, _ = jdecode(jp, jnp.asarray(step), cj)
-        lt, ct, _ = tt.decode_step(tp, cfg, torch.from_numpy(step).long(), ct)
+        lj, cj, _ = jdecode(jp, jnp.asarray(step), cj, jdkw)
+        lt, ct, _ = tt.decode_step(tp, cfg, torch.from_numpy(step).long(), ct,
+                                   **tdkw)
         close(lt, lj)
         step = np.asarray(jnp.argmax(lj[:, 0], -1))[:, None].astype(np.int32)
     np.testing.assert_array_equal(ct["index"].numpy(), ragged + 3)
-    close(ct["blocks"].k, cj["blocks"].k)
+    close_caches(ct, cj)
 
 
 @pytest.mark.parametrize("name,max_len", [
@@ -181,15 +233,43 @@ def test_windowed_decode_past_the_window(name, max_len):
         assert np.array_equal(lt[:, 0].argmax(-1).numpy(), nj[:, 0])
 
 
-def test_one_token_prefill_takes_the_decode_branch():
-    jcfg, cfg = cfgs("granite-3-8b")
+@pytest.mark.parametrize("name", ALL)
+def test_one_token_prefill_takes_the_decode_branch(name):
+    jcfg, cfg = cfgs(name)
     jp, tp = same_params(jcfg, seed=5)
     tok = tokens(jcfg, (2, 1), seed=5)
-    lj, cj, _ = jt.prefill(jp, jcfg, jnp.asarray(tok), jt.init_caches(jcfg, 2, 8))
+    jkw, tkw, _, _ = extras(jcfg, 2, seed=5)
+    lj, cj, _ = jt.prefill(jp, jcfg, jnp.asarray(tok),
+                           jt.init_caches(jcfg, 2, 8, enc_len=ENC_LEN), **jkw)
     lt, ct, _ = tt.prefill(tp, cfg, torch.from_numpy(tok).long(),
-                           tt.init_caches(cfg, 2, 8, device=CPU))
+                           tt.init_caches(cfg, 2, 8, enc_len=ENC_LEN,
+                                          device=CPU), **tkw)
     close(lt, lj)
-    close(ct["blocks"].k, cj["blocks"].k)
+    close_caches(ct, cj)
+
+
+@pytest.mark.parametrize("name", ["glm4-9b", "zamba2-2.7b", "xlstm-1.3b"])
+def test_decode_matches_forward(name):
+    """Teacher-forced decode reproduces the parallel forward's logits (the
+    reference's test of the same name, on the port, at its tolerance), and
+    the decoded logits are the reference's."""
+    jcfg, cfg = cfgs(name)
+    jp, tp = same_params(jcfg, seed=2)
+    tok = tokens(jcfg, (1, 8), seed=2)
+    full, _, _ = tt.forward(tp, cfg, torch.from_numpy(tok).long())
+    ct = tt.init_caches(cfg, 1, 16, device=CPU)
+    _, ct, _ = tt.prefill(tp, cfg, torch.from_numpy(tok[:, :4]).long(), ct)
+    cj = jt.init_caches(jcfg, 1, 16)
+    _, cj, _ = jt.prefill(jp, jcfg, jnp.asarray(tok[:, :4]), cj)
+    outs = []
+    for i in range(4, 8):
+        lt, ct, _ = tt.decode_step(tp, cfg,
+                                   torch.from_numpy(tok[:, i:i + 1]).long(), ct)
+        lj, cj, _ = jt.decode_step(jp, jcfg, jnp.asarray(tok[:, i:i + 1]), cj)
+        close(lt, lj)
+        outs.append(lt)
+    np.testing.assert_allclose(torch.cat(outs, 1).numpy(),
+                               full[:, 4:8].numpy(), rtol=2e-2, atol=2e-2)
 
 
 @pytest.mark.parametrize("use_rope", [False, True])
@@ -282,7 +362,7 @@ def test_moe_routing_and_output_match(name, tied):
 
 
 # ---------------------------------------------------------------------------
-# carrying params across, unported families
+# carrying params across, families
 # ---------------------------------------------------------------------------
 
 def test_params_round_trip_to_numpy_keeps_bytes_bf16():
@@ -297,15 +377,37 @@ def test_params_round_trip_to_numpy_keeps_bytes_bf16():
         assert_same_bytes(b, a)
 
 
-@pytest.mark.parametrize("name", UNPORTED)
-def test_unported_families_raise(name):
-    cfg = get_arch(name).reduced()
-    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 1"):
+def test_unknown_family_raises():
+    """A family no code path knows raises ``ValueError``, as the
+    reference's ``init_params`` does."""
+    cfg = dataclasses.replace(get_arch("granite-3-8b").reduced(),
+                              family="rnn")
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        jt.init_params(dataclasses.replace(jget_arch("granite-3-8b").reduced(),
+                                           family="rnn"), jax.random.key(0))
+    with pytest.raises(ValueError, match="unknown family rnn"):
         tt.init_params(cfg, device="meta")
-    with pytest.raises(NotImplementedError, match=cfg.family):
+    with pytest.raises(ValueError, match="unknown family rnn"):
         tt.init_caches(cfg, 1, 8, device=CPU)
-    with pytest.raises(NotImplementedError):
-        tt.forward({"embed": torch.zeros(cfg.vocab_size, cfg.d_model)}, cfg,
-                   torch.zeros((1, 2), dtype=torch.long))
-    with pytest.raises(NotImplementedError):
-        ServeEngine({"embed": torch.zeros(1)}, cfg, n_slots=1, max_len=8)
+    params = tt.init_params(get_arch("granite-3-8b").reduced(), device=CPU)
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        tt.forward(params, cfg, torch.zeros((1, 2), dtype=torch.long))
+    with pytest.raises(ValueError, match="unknown family rnn"):
+        ServeEngine(params, cfg, n_slots=1, max_len=8)
+
+
+@pytest.mark.parametrize("name,missing", [("llama-3.2-vision-11b",
+                                           "image_embeds"),
+                                          ("whisper-tiny", "encoder_frames")])
+def test_stub_frontend_inputs_are_required(name, missing):
+    """vlm without ``image_embeds`` raises; audio without
+    ``encoder_frames`` raises unless its caches hold ``enc_out``."""
+    cfg = get_arch(name).reduced()
+    params = tt.init_params(cfg, torch.Generator().manual_seed(0), device=CPU)
+    tok = torch.zeros((1, 2), dtype=torch.long)
+    with pytest.raises(ValueError, match=missing):
+        tt.forward(params, cfg, tok)
+    if cfg.family == "audio":
+        caches = tt.init_caches(cfg, 1, 8, enc_len=3, device=CPU)
+        logits, _, _ = tt.prefill(params, cfg, tok, caches)
+        assert logits.shape == (1, 2, cfg.vocab_size)

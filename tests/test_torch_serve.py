@@ -3,10 +3,12 @@
 ``ModelRepo`` tables cross between the packages in both directions, every
 leaf byte-identical (bf16 included), on a ``zlib+shuffle`` local-filesystem
 store that both packages open, with the port's frame-decode hook on its
-plain CPU version. The port's ``ServeEngine`` is held to the JAX engine
-token for token on the same weights (the scenarios of
-``tests/test_serve.py``), and to its own offline prefill + decode loop.
-Everything runs on the CPU (``device="cpu"``).
+plain CPU version, for granite and for one arch of each other family. The
+port's ``ServeEngine`` is held to the JAX engine token for token on the
+same weights (the scenarios of ``tests/test_serve.py``; for the vlm and
+audio families with distinct ``image_embeds`` / ``encoder_frames`` rows per
+slot), and to its own offline prefill + decode loop. Everything runs on
+the CPU (``device="cpu"``).
 """
 
 import dataclasses
@@ -45,6 +47,9 @@ CPU = "cpu"
 JCFG = jget_arch("granite-3-8b").reduced()
 CFG = get_arch("granite-3-8b").reduced()
 COMPRESSION = "zlib+shuffle"
+FAMILIES = ["llama-3.2-vision-11b", "whisper-tiny", "xlstm-1.3b",
+            "zamba2-2.7b"]   # vlm, audio, ssm, hybrid
+ENC_LEN = 12
 
 
 @pytest.fixture(autouse=True)
@@ -233,6 +238,28 @@ def test_load_casts_to_template_dtype_and_shims_warn():
     assert torch.equal(got["a"], params["a"].double())
 
 
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_tables_cross_both_ways(tmp_path, name):
+    """bf16 (zamba2's f32 ``a_log`` / ``dt_bias`` / ``d_skip`` beside its
+    bf16 leaves): the reference's table loads into the port's template and
+    the port's into the reference's, byte for byte."""
+    jcfg = dataclasses.replace(jget_arch(name).reduced(), dtype="bfloat16")
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="bfloat16")
+    params = jparams(jcfg, 5)
+    with ref_store(tmp_path).models("ref") as repo:
+        repo.save(params)
+    store = port_store(tmp_path)
+    with store.models("ref") as repo:
+        got = repo.load(tt.init_params(cfg, device="meta"))
+    assert_same_tree(got, params)
+    mine = tt.init_params(cfg, torch.Generator().manual_seed(5), device=CPU)
+    with store.models("port") as repo:
+        repo.save(mine)
+    template = jax.eval_shape(lambda: jt.init_params(jcfg, jax.random.key(0)))
+    with ref_store(tmp_path).models("port") as repo:
+        assert_same_tree(repo.load(template), mine)
+
+
 # ---------------------------------------------------------------------------
 # ServeEngine against the reference engine
 # ---------------------------------------------------------------------------
@@ -263,6 +290,79 @@ def test_engine_continuous_batching_matches_reference():
         assert r.done
         assert len(r.out_tokens) == r.max_new_tokens
         assert r.out_tokens == jr.out_tokens
+
+
+def family_extras(cfg, rows):
+    """Distinct stub-frontend rows, one per slot: (for the reference
+    engine, for the port's, enc_len)."""
+    rng = np.random.default_rng(11)
+    kw = {}
+    if cfg.family == "vlm":
+        kw["image_embeds"] = rng.standard_normal(
+            (rows, cfg.n_image_tokens, cfg.d_model)).astype(np.float32)
+    if cfg.family == "audio":
+        kw["encoder_frames"] = rng.standard_normal(
+            (rows, ENC_LEN, cfg.d_model)).astype(np.float32)
+    return ({k: jnp.asarray(v) for k, v in kw.items()},
+            {k: torch.from_numpy(v) for k, v in kw.items()},
+            ENC_LEN if kw.get("encoder_frames") is not None else 1)
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_engine_matches_reference(name):
+    """5 requests through 2 slots; prompts within ``ssm_chunk`` or a
+    multiple of it (the chunked core's requirement in both packages)."""
+    jcfg, cfg = jget_arch(name).reduced(), get_arch(name).reduced()
+    jp = jt.init_params(jcfg, jax.random.key(6))
+    jkw, tkw, enc_len = family_extras(jcfg, 2)
+    rng = np.random.default_rng(6)
+    lens = [4, 7, 8, 16, 3]
+
+    def reqs(cls):
+        return [cls(rid=i, prompt=rng.integers(0, cfg.vocab_size, (n,)).astype(
+            np.int32), max_new_tokens=3 + i) for i, n in enumerate(lens)]
+    jreqs = reqs(JRequest)
+    rng = np.random.default_rng(6)
+    treqs = reqs(Request)
+    jeng = JServeEngine(jp, jcfg, n_slots=2, max_len=48, extra_inputs=jkw,
+                        enc_len=enc_len)
+    eng = ServeEngine(params_from_numpy(jax.tree.map(np.asarray, jp), CPU),
+                      cfg, n_slots=2, max_len=48, extra_inputs=tkw,
+                      enc_len=enc_len)
+    for e, rs in ((jeng, jreqs), (eng, treqs)):
+        for r in rs:
+            e.submit(r)
+        e.run_until_drained(max_iters=200)
+    for r, jr in zip(treqs, jreqs):
+        assert r.done and len(r.out_tokens) == r.max_new_tokens
+        assert r.out_tokens == jr.out_tokens
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_family_one_slot_engine_matches_offline_decode(name):
+    """With one slot the lane replaces every cache leaf, and a prefill and
+    each decode step get row 0 of the frontend inputs (the audio family
+    encodes its frames again at every step): the engine's tokens are the
+    offline loop's that passes the same rows."""
+    cfg = get_arch(name).reduced()
+    params = tt.init_params(cfg, torch.Generator().manual_seed(7), device=CPU)
+    _, tkw, enc_len = family_extras(cfg, 1)
+    prompt = np.arange(8, dtype=np.int32) * 5 % cfg.vocab_size
+    caches = tt.init_caches(cfg, 1, 32, enc_len=enc_len, device=CPU)
+    logits, caches, _ = tt.prefill(params, cfg,
+                                   torch.from_numpy(prompt[None]).long(),
+                                   caches, **tkw)
+    ref = [int(logits[0, -1].argmax())]
+    for _ in range(4):
+        lg, caches, _ = tt.decode_step(params, cfg, torch.tensor([[ref[-1]]]),
+                                       caches, **tkw)
+        ref.append(int(lg[0, 0].argmax()))
+    eng = ServeEngine(params, cfg, n_slots=1, max_len=32, extra_inputs=tkw,
+                      enc_len=enc_len)
+    req = Request(rid=0, prompt=prompt, max_new_tokens=5)
+    eng.submit(req)
+    eng.run_until_drained(max_iters=50)
+    assert req.out_tokens == ref
 
 
 def test_engine_matches_offline_decode():
@@ -331,3 +431,19 @@ def test_serve_example_runs_on_the_cpu():
     assert r.returncode == 0, r.stderr
     assert "served 3 requests, 9 tokens" in r.stdout
     assert "weights loaded from delta store" in r.stdout
+
+
+@pytest.mark.parametrize("name", FAMILIES)
+def test_serve_example_serves_every_family(name):
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [os.path.join(os.path.dirname(os.path.dirname(__file__)), "src")]
+        + ([env["PYTHONPATH"]] if env.get("PYTHONPATH") else []))
+    r = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.serve_lm", "--arch", name,
+         "--device", "cpu", "--requests", "3", "--slots", "2", "--max-new",
+         "3", "--from-store"],
+        capture_output=True, text=True, env=env, timeout=120)
+    assert r.returncode == 0, r.stderr
+    assert f"arch={name} " in r.stdout
+    assert "served 3 requests, 9 tokens" in r.stdout
