@@ -120,10 +120,31 @@ Phases, each of which exits non-zero on failure:
    ``block_norms`` and ``block_scatter`` must have launched in the phase;
    each is held to its plain version at every shape the phase gave it, and
    ``block_gather`` timed at the restore's largest;
+7b. training the deep families at published widths, bf16, batches of
+   8x256 tokens through ``FTSFLoader``: (a) zamba2-2.7b cut to 2
+   super-blocks (14 layers), one forward and backward with remat
+   (``nothing_saveable``) and without (``everything_saveable``) on the
+   same weights: equal loss, every gradient leaf byte-identical or within
+   1e-6 of its max|g|, a lower peak with remat, and from the activations
+   saved per super-block the estimated peak of a 54-layer step without
+   remat (not run); (b) step 1 of zamba2 cut to one super-block (7 layers),
+   f32, held to the same call on the CPU (loss and grad norm within 1e-3
+   relative); (c) zamba2-2.7b at its published depth (54 layers) with
+   remat, five plain steps (finite loss and grad norm; step ms, tokens/s,
+   model-FLOPs share, peak memory, one profiled step); (d) whisper-tiny at
+   published depth, seeded ``encoder_frames`` (8, 1500, 384) bf16: three
+   plain steps, three ``make_compressed_train_step`` steps over 2 pods at
+   ratio 0.05 (pods byte-identical, wire ratio below 0.1; ``block_norms``,
+   ``block_gather`` and ``block_scatter`` launch at whisper's leaf shapes
+   and are held to their plain versions at each), a ``DeltaCheckpointer``
+   save and ``restore(device="cuda")`` (byte-identical, ``block_gather``),
+   and ``repro_torch.launch.serve`` over that checkpoint (``--ckpt-gc-keep
+   1``, 8 requests, 4 slots), whose tokens must equal an in-process
+   ``ServeEngine``'s over the restored params;
 8. print the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path: read, stream, compress, serve, one serve
-   path per family of 6b, train), and as the last line ``{"ok": true,
-   "device": {...}}``.
+   path per family of 6b, train, train_zamba2, train_whisper), and as the
+   last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of jax or of the JAX package ``repro``.
 """
@@ -2364,6 +2385,387 @@ def train_path(torch, np, layers, workdir):
     return counts, times
 
 
+# -- phase 7b: training the deep families ------------------------------------------
+
+DEEP_B, DEEP_T = 8, 256          # a step's batch; T a multiple of ssm_chunk (128)
+DEEP_SAMPLES = 128               # token rows in their corpus (16 batches)
+DEEP_VOCAB = 32000               # corpus tokens below both models' vocabularies
+REMAT_SUPERS = 2                 # zamba2 super-blocks in 7b(a): 14 layers
+REMAT_GRAD_TOL = 1e-6            # a leaf's max|d| over its max|g|, remat or not
+DEEP_CPU_T = 128                 # 7b(b): one 1x128 batch, on the card and the CPU
+DEEP_STEP_RTOL = 1e-3            # 7b(b): loss and grad norm, f32 both sides
+DEEP_STEPS = 5                   # 7b(c): plain steps at published depth
+WHISPER_STEPS = 3                # 7b(d): plain, then compressed steps
+SERVE_CLI = ["--arch", "whisper-tiny", "--ckpt-gc-keep", "1",
+             "--requests", "8", "--slots", "4"]
+
+
+def deep_configs():
+    """(zamba2-2.7b, whisper-tiny) at their published widths and depth
+    (src/repro/configs/zamba2_2_7b.py: 54 Mamba2 layers, the shared
+    attention block before every 6, d_model 2560, vocab 32000;
+    whisper_tiny.py: 4 encoder + 4 decoder layers, d_model 384, vocab
+    51865), bf16, each super-block and encoder layer rematerialised under
+    their configs' ``remat_policy``, ``nothing_saveable``."""
+    from repro_torch.models import get_arch
+    return get_arch("zamba2-2.7b"), get_arch("whisper-tiny")
+
+
+def nbytes(torch, tree) -> int:
+    from repro_torch.tree import leaves
+    return sum(t.numel() * t.element_size() for _, t in leaves(tree))
+
+
+def remat_parity(torch, tt, cfg, batch):
+    """7b(a): one forward and backward of zamba2 cut to REMAT_SUPERS
+    super-blocks, with and without remat, on the same weights and batch:
+    equal loss, every gradient leaf byte-identical or within REMAT_GRAD_TOL
+    of its max|g|, and a lower peak with remat. Returns (activation bytes
+    saved per super-block, the no-remat step's transient bytes)."""
+    import dataclasses
+    from repro_torch.tree import leaves, rebuild
+    cut = dataclasses.replace(cfg, n_layers=REMAT_SUPERS * cfg.shared_attn_every)
+    gen = torch.Generator(device="cuda").manual_seed(1)
+    params = tt.init_params(cut, gen, device="cuda")
+    flat = [p.detach().requires_grad_() for _, p in leaves(params)]
+    with torch.enable_grad():   # a warm-up, so neither variant times it
+        torch.autograd.grad(tt.loss_fn(rebuild(params, iter(flat)), cut,
+                                       batch)[0], flat)
+    out = {}
+    for policy in ("nothing_saveable", "everything_saveable"):
+        c = dataclasses.replace(cut, remat_policy=policy)
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        flat = [p.detach().requires_grad_() for _, p in leaves(params)]
+        t0 = time.perf_counter()
+        with torch.enable_grad():
+            total, _ = tt.loss_fn(rebuild(params, iter(flat)), c, batch)
+            torch.cuda.synchronize()
+            held = torch.cuda.memory_allocated() - base
+            grads = torch.autograd.grad(total, flat)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        peak = torch.cuda.max_memory_allocated()
+        out[policy] = (total.detach(), grads, held, peak - base, peak, ms)
+        del flat, total
+    loss_r, g_r, held_r, inc_r, peak_r, ms_r = out["nothing_saveable"]
+    loss_e, g_e, held_e, inc_e, peak_e, ms_e = out["everything_saveable"]
+    names = [n for n, _ in leaves(params)]
+    identical, apart, worst = 0, [], 0.0
+    for n, a, b in zip(names, g_r, g_e):
+        if same_bytes(a, b):
+            identical += 1
+            continue
+        top = float(b.float().abs().max())
+        d = float((a.float() - b.float()).abs().max())
+        worst = max(worst, d / max(top, 1e-30))
+        apart.append((n, d, top))
+    grad_bytes = nbytes(torch, list(g_r))
+    per_super = (held_e - held_r) / REMAT_SUPERS
+    log(f"[remat] zamba2-2.7b at published widths, {cut.dtype}, depth cut to "
+        f"{REMAT_SUPERS} super-blocks ({cut.n_layers} Mamba2 layers and "
+        f"{REMAT_SUPERS} applications of the shared attention block), "
+        f"{tt.param_count(params)} parameters, batch {DEEP_B}x{DEEP_T}: "
+        f"loss with remat {float(loss_r)!r}, without {float(loss_e)!r}; "
+        f"{identical} of {len(names)} gradient leaves byte-identical, the "
+        f"others {[(n, d, top) for n, d, top in apart]} (max|d| / max|g| "
+        f"{worst!r}, limit {REMAT_GRAD_TOL})")
+    log(f"[remat] activations held after the forward pass: {held_r} B with "
+        f"remat, {held_e} B without; peak {peak_r} B with remat (+{inc_r} B "
+        f"over the params), {peak_e} B without (+{inc_e} B); step {ms_r!r} "
+        f"ms with remat, {ms_e!r} ms without; saved per super-block "
+        f"{per_super!r} B")
+    if not torch.equal(loss_r, loss_e):
+        fail(f"remat changed the loss: {float(loss_r)!r} against "
+             f"{float(loss_e)!r}")
+    if worst > REMAT_GRAD_TOL:
+        fail(f"remat changed gradient leaves beyond {REMAT_GRAD_TOL} of their "
+             f"max|g|: {apart}")
+    if not peak_r < peak_e:
+        fail(f"remat did not lower the peak: {peak_r} B against {peak_e} B")
+    transient = inc_e - grad_bytes - held_e
+    del params, out, g_r, g_e
+    torch.cuda.empty_cache()
+    return per_super, transient
+
+
+def deep_step_on_cpu(torch, np, trainer, opt, cfg):
+    """7b(b): step 1 of zamba2 cut to one super-block (7 layers) at
+    published widths, in f32 on the card and on the CPU from the same
+    state: loss and grad norm within DEEP_STEP_RTOL."""
+    import dataclasses
+    from repro_torch.tree import tree_map
+    cut = dataclasses.replace(cfg, n_layers=cfg.shared_attn_every,
+                              dtype="float32")
+    gen = torch.Generator(device="cuda").manual_seed(2)
+    state = trainer.init_state(cut, gen, device="cuda")
+    cpu_state = tree_map(lambda t: t.cpu(), state)
+    rng = np.random.default_rng(8)
+    tok = rng.integers(0, cut.vocab_size, (1, DEEP_CPU_T)).astype(np.int32)
+    lab = np.concatenate([tok[:, 1:], np.full((1, 1), -1, np.int32)], 1)
+    batch = {"tokens": torch.as_tensor(tok), "labels": torch.as_tensor(lab)}
+    step = trainer.make_train_step(cut, opt.OptConfig(**TRAIN_OPT))
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    state, m = step(state, {k: v.cuda() for k, v in batch.items()})
+    torch.cuda.synchronize()
+    card_ms = (time.perf_counter() - t0) * 1e3
+    t0 = time.perf_counter()
+    cpu_state, cm = step(cpu_state, batch)
+    cpu_s = time.perf_counter() - t0
+    if cpu_s > TRAIN_CPU_BUDGET_S:
+        fail(f"the CPU step took {cpu_s!r} s, over its {TRAIN_CPU_BUDGET_S} s "
+             f"budget")
+    for k in ("loss", "grad_norm"):
+        got, want = float(m[k]), float(cm[k])
+        rel = abs(got - want) / abs(want)
+        log(f"[verify] zamba2-2.7b step 1, one super-block ({cut.n_layers} "
+            f"Mamba2 layers and the shared attention block), f32, "
+            f"1x{DEEP_CPU_T} tokens, {k}: card {got!r}, CPU {want!r}, "
+            f"relative {rel!r} (limit {DEEP_STEP_RTOL}); card {card_ms!r} ms, "
+            f"CPU {cpu_s!r} s")
+        if not rel <= DEEP_STEP_RTOL:
+            fail(f"zamba2 step 1 {k} on the card {got!r} differs from the "
+                 f"CPU's {want!r}")
+    del state, cpu_state
+    torch.cuda.empty_cache()
+
+
+def zamba2_steps(torch, tt, trainer, opt, cfg, next_batch, per_super,
+                 transient):
+    """7b(c): DEEP_STEPS plain steps of zamba2-2.7b at published depth and
+    widths with remat: step ms, tokens/s, model-FLOPs share, peak memory,
+    one profiled step; the peak without remat estimated from 7b(a)."""
+    n_super = cfg.n_layers // cfg.shared_attn_every
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    state = trainer.init_state(cfg, gen, device="cuda")
+    n_params = tt.param_count(state.params)
+    state_bytes = nbytes(torch, state)
+    step = trainer.make_train_step(cfg, opt.OptConfig(**TRAIN_OPT))
+    tokens = DEEP_B * DEEP_T
+    ms, losses, norms = [], [], []
+    box = {}
+    for i in range(1, DEEP_STEPS + 1):
+        b = next_batch()
+        if i == DEEP_STEPS:
+            def run():
+                box["out"] = step(state, b)
+            profile_call(torch, f"zamba2-2.7b train step {i} ({tokens} "
+                         f"tokens, 54 layers, remat)", run)
+            state, m = box.pop("out")
+        else:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            state, m = step(state, b)
+            torch.cuda.synchronize()
+            ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(m["loss"]))
+        norms.append(float(m["grad_norm"]))
+        if not (math.isfinite(losses[-1]) and math.isfinite(norms[-1])):
+            fail(f"zamba2 step {i}: loss {losses[-1]!r}, grad norm {norms[-1]!r}")
+    peak = torch.cuda.max_memory_allocated()
+    med = sorted(ms[1:])[len(ms[1:]) // 2] / 1e3
+    flops = 6 * n_params * tokens
+    grads = 2 * n_params          # bf16 gradients
+    est = state_bytes + grads + n_super * per_super + transient
+    log(f"[train zamba2] zamba2-2.7b at published depth and widths: "
+        f"{n_params} parameters, TrainState {state_bytes} B; {DEEP_STEPS} "
+        f"steps of {DEEP_B}x{DEEP_T} tokens from FTSFLoader: step ms {ms} "
+        f"(steps 1-{DEEP_STEPS - 1}; step {DEEP_STEPS} profiled), losses "
+        f"{losses}, grad norms {norms}; median of steps 2-{DEEP_STEPS - 1} "
+        f"{med * 1e3!r} ms, {tokens / med!r} tokens/s, model-FLOPs share "
+        f"{flops / med / PEAK_BF16_FLOPS!r} (6 N tokens = {flops} FLOP a step "
+        f"over 989 TFLOP/s); peak device memory with remat {peak} B")
+    log(f"[train zamba2] estimated peak of a 54-layer step without remat: "
+        f"{est!r} B = TrainState {state_bytes} + bf16 grads {grads} + "
+        f"{n_super} super-blocks x {per_super!r} B saved + the step's "
+        f"transient {transient} B (7b(a)); not run")
+    del state, box
+    torch.cuda.empty_cache()
+
+
+def whisper_path(torch, np, tt, trainer, opt, cfg, next_batch, workdir):
+    """7b(d): whisper-tiny trained at published depth and widths (plain
+    steps, then compressed steps over 2 pods), its TrainState checkpointed
+    and restored onto the card, then served from that checkpoint by
+    ``repro_torch.launch.serve`` and compared with an in-process engine.
+    Returns the kernels' launch records."""
+    from repro_torch import kernels as kern
+    from repro_torch.lake import LocalFSObjectStore
+    from repro_torch.launch import serve as serve_cli
+    from repro_torch.models.layers import dtype_of
+    from repro_torch.serve import Request, ServeEngine
+    from repro_torch.train import checkpoint as ckpt_mod
+    from repro_torch.tree import leaves
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(4)
+    frames = torch.randn((DEEP_B, WHISPER_FRAMES, cfg.d_model), generator=gen,
+                         device=dev).to(dtype_of(cfg.dtype))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    state = trainer.init_state(cfg, gen, device=dev)
+    step = trainer.make_train_step(cfg, opt.OptConfig(**TRAIN_OPT))
+    ms = []
+    for i in range(1, WHISPER_STEPS + 1):
+        b = dict(next_batch(), encoder_frames=frames)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, m = step(state, b)
+        loss = float(m["loss"])
+        ms.append((time.perf_counter() - t0) * 1e3)
+        if not (math.isfinite(loss) and math.isfinite(float(m["grad_norm"]))):
+            fail(f"whisper step {i}: loss {loss!r}")
+    log(f"[train whisper] whisper-tiny at published depth and widths, "
+        f"{tt.param_count(state.params)} parameters, encoder_frames "
+        f"{tuple(frames.shape)} {frames.dtype}: {WHISPER_STEPS} plain steps of "
+        f"{DEEP_B}x{DEEP_T} tokens, {ms} ms, last loss {loss!r}")
+
+    cstate = trainer.init_compressed_state(cfg, gen, PODS, device=dev)
+    cstep = trainer.make_compressed_train_step(cfg, opt.OptConfig(**TRAIN_OPT),
+                                               ratio=RATIO)
+    records, undo = recording_launches(
+        torch, (kern.block_gather, kern.block_norms, kern.block_scatter))
+    try:
+        cms = []
+        for i in range(1, WHISPER_STEPS + 1):
+            b = dict(next_batch(), encoder_frames=frames)
+            b = {k: v.reshape((PODS, DEEP_B // PODS) + tuple(v.shape[1:]))
+                 for k, v in b.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            cstate, cm = cstep(cstate, b)
+            torch.cuda.synchronize()
+            cms.append((time.perf_counter() - t0) * 1e3)
+            apart = [n for n, p in leaves(cstate.params)
+                     if not same_bytes(p[0], p[1])]
+            if apart:
+                fail(f"whisper compressed step {i}: pods differ on {apart}")
+            if not (cm["wire_ratio"] < WIRE_LIMIT
+                    and math.isfinite(float(cm["loss"]))):
+                fail(f"whisper compressed step {i}: wire ratio "
+                     f"{cm['wire_ratio']!r}, loss {float(cm['loss'])!r}")
+        log(f"[train whisper] {WHISPER_STEPS} compressed steps over {PODS} "
+            f"pods at ratio {RATIO}: {cms} ms, last loss "
+            f"{float(cm['loss'])!r}, wire ratio {cm['wire_ratio']!r}, pods "
+            f"byte-identical; peak device memory "
+            f"{torch.cuda.max_memory_allocated()} B")
+        del cstate, cm
+        vocab_rows = [x for x, _ in records["block_norms"]
+                      if x[0] == (cfg.vocab_size, cfg.d_model)]
+        if not vocab_rows:
+            fail("block_norms never saw the (51865, 384) embedding leaf")
+
+        ckdir = workdir / "ckpt"
+        ck = ckpt_mod.DeltaCheckpointer(LocalFSObjectStore(str(ckdir)),
+                                        device=dev)
+        t0 = time.perf_counter()
+        ck.save(WHISPER_STEPS, state)
+        save_s = time.perf_counter() - t0
+        before = kern.launch_counts()["block_gather"]
+        t0 = time.perf_counter()
+        found, restored = ck.restore(trainer.init_state(cfg, device="meta"),
+                                     device="cuda")
+        torch.cuda.synchronize()
+        restore_s = time.perf_counter() - t0
+        gathered = kern.launch_counts()["block_gather"] - before
+        bad = [n for (n, a), (_, b) in zip(leaves(restored), leaves(state))
+               if not (a.is_cuda and same_bytes(a, b))]
+        if found != WHISPER_STEPS or bad or gathered <= 0:
+            fail(f"whisper restore: step {found}, differing leaves {bad}, "
+                 f"block_gather launches {gathered}")
+        log(f"[ckpt whisper] save {save_s!r} s, restore(device='cuda') "
+            f"{restore_s!r} s through {gathered} block_gather launches; every "
+            f"leaf ({len(leaves(restored))}) byte-identical")
+    finally:
+        undo()
+    del state
+
+    t0 = time.perf_counter()
+    served = serve_cli.main(SERVE_CLI + ["--ckpt-dir", str(ckdir)])
+    cli_s = time.perf_counter() - t0
+    args = serve_cli.parse_args(SERVE_CLI)
+    reqs = [Request(rid=r.rid, prompt=r.prompt.copy(),
+                    max_new_tokens=args.max_new) for r in served]
+    with ServeEngine(restored.params, cfg, n_slots=args.slots,
+                     max_len=args.max_len) as eng:
+        for r in reqs:
+            eng.submit(r)
+        eng.run_until_drained()
+    same = [r.rid for r, w in zip(served, reqs)
+            if list(map(int, r.out_tokens)) == list(map(int, w.out_tokens))]
+    log(f"[serve whisper] launch.serve over the checkpoint (--ckpt-gc-keep 1): "
+        f"{len(served)} requests in {cli_s!r} s; tokens equal to an "
+        f"in-process ServeEngine's ({args.slots} slots) for {len(same)} of "
+        f"{len(reqs)}; first request {served[0].out_tokens}")
+    if len(same) != len(reqs) or not all(r.done for r in served):
+        fail("the serve CLI's tokens differ from the in-process engine's")
+    if ck.steps() != [WHISPER_STEPS]:
+        fail(f"the CLI's gc left steps {ck.steps()}")
+    del restored
+    torch.cuda.empty_cache()
+    return records
+
+
+def deep_train_path(torch, np, workdir):
+    """7b: the deep families trained at published widths on the card.
+    Returns {path: launch counts} for train_zamba2 and train_whisper."""
+    from repro_torch import kernels as kern
+    from repro_torch.core import DeltaTensorStore
+    from repro_torch.data.pipeline import FTSFLoader, write_token_dataset
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.lake import LocalFSObjectStore
+    from repro_torch.models import transformer as tt
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+
+    t_phase = time.perf_counter()
+    dev = torch.device("cuda")
+    zamba2, whisper = deep_configs()
+    data = DeltaTensorStore(LocalFSObjectStore(str(workdir / "data")),
+                            "datasets", device=dev)
+    write_token_dataset(data, token_stream(DEEP_SAMPLES, DEEP_T, DEEP_VOCAB,
+                                           seed=1), tensor_id="corpus")
+    loader = FTSFLoader(data, "corpus", batch_size=DEEP_B, seed=1)
+    batches = iter(loader)
+
+    def next_batch():
+        b = next(batches)
+        return {k: torch.as_tensor(b[k]).to(dev) for k in ("tokens", "labels")}
+
+    paths = {}
+    try:
+        torch.cuda.synchronize()
+        reset_counts(kern)
+        per_super, transient = remat_parity(torch, tt, zamba2, next_batch())
+        deep_step_on_cpu(torch, np, trainer, opt, zamba2)
+        zamba2_steps(torch, tt, trainer, opt, zamba2, next_batch, per_super,
+                     transient)
+        paths["train_zamba2"] = kern.launch_counts()
+        log(f"[train zamba2] launches over 7b(a)-(c): "
+            f"{json.dumps(paths['train_zamba2'])} (the model runs no kernel of "
+            f"this repo)")
+
+        torch.cuda.synchronize()
+        reset_counts(kern)
+        records = whisper_path(torch, np, tt, trainer, opt, whisper,
+                               next_batch, workdir)
+        paths["train_whisper"] = kern.launch_counts()
+    finally:
+        loader.close()
+    log(f"[train whisper] launches over 7b(d): "
+        f"{json.dumps(paths['train_whisper'])}")
+    for name in COMPRESS_KERNELS:
+        if paths["train_whisper"][name] <= 0:
+            fail(f"kernel {name} was not launched on whisper's training path")
+    check_train_kernels(torch, kern, records)
+    log(f"[train] phase 7b: {time.perf_counter() - t_phase!r} s")
+    return paths
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2450,6 +2852,14 @@ def main() -> int:
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_train_", dir=workroot))
     try:
         paths["train"], train_gather = train_path(torch, np, args.layers, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+    # 7b. training zamba2-2.7b and whisper-tiny at published widths
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_deep_", dir=workroot))
+    try:
+        paths.update(deep_train_path(torch, np, workdir))
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 

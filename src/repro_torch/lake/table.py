@@ -198,6 +198,7 @@ class CompactResult:
     bytes_rewritten: int = 0            # physical bytes of the new files
     version: Optional[int] = None       # committed version (None = no commit)
     removed_paths: List[str] = field(default_factory=list)
+    lost_races: int = 0                 # fenced commits a writer beat
 
     def __bool__(self) -> bool:
         return self.files_compacted > 0
@@ -706,7 +707,13 @@ class DeltaTable:
         The commit is **fenced** at the snapshot compact planned against:
         a concurrent writer that lands first (e.g. deleting a tensor whose
         files are being merged — re-adding them would resurrect it) forces
-        a re-plan from the fresh snapshot rather than a blind rebase.
+        a re-plan from the fresh snapshot rather than a blind rebase. A
+        pass that loses ``max_retries + 1`` races to writers gives up and
+        returns a falsy result (``lost_races`` counts them): compaction is
+        an optimisation that the next pass retries, and a maintenance loop
+        racing busy writers must not fail for it. (The reference re-raises
+        the :class:`CommitConflict`.) Its uploaded files are invisible
+        orphans that :meth:`vacuum` reclaims.
         Compact never deletes bytes; the rewritten-away files stay in the
         object store for older snapshots until :meth:`vacuum`.
 
@@ -763,16 +770,19 @@ class DeltaTable:
                         partition_values=dict(pv_items), guard=guard,
                         compression=spec, shuffle_itemsize=itemsize))
                 if not new_adds:
-                    return CompactResult(files_skipped_shared=skipped_shared)
+                    return CompactResult(files_skipped_shared=skipped_shared,
+                                         lost_races=attempt)
                 try:
                     v = self.commit_adds(new_adds, removes=removes, op="OPTIMIZE",
                                          expected_version=snap.version)
                 except CommitConflict:
                     attempt += 1
-                    if attempt > max_retries:
-                        raise
+                    if attempt > max_retries:  # the next pass tries again
+                        return CompactResult(files_skipped_shared=skipped_shared,
+                                             lost_races=attempt)
                     continue  # somebody landed first: re-plan on their snapshot
-                return CompactResult(files_compacted=len(removes),
+                return CompactResult(lost_races=attempt,
+                                     files_compacted=len(removes),
                                      files_written=len(new_adds),
                                      files_recompressed=recompressed,
                                      files_skipped_shared=skipped_shared,

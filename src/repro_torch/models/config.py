@@ -4,9 +4,10 @@ The port's copy of ``repro.models.config`` (plain data, field for field).
 Every assigned architecture is an ``ArchConfig``; family-specific structure
 (MoE, SSM, hybrid interleave, enc-dec, cross-attn) is driven by fields
 rather than subclasses. The distribution and tiling fields
-(``sharding_profile``, ``remat_policy``, ``attn_chunk_*``) are kept so that
-a config means the same in both packages; the port's serving path does not
-read them.
+(``sharding_profile``, ``attn_chunk_*``) are kept so that a config means
+the same in both packages; the port does not read them. ``remat_policy``
+picks what :mod:`.transformer` keeps of each super-block for the backward
+pass.
 """
 
 from __future__ import annotations

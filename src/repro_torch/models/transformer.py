@@ -21,17 +21,26 @@ Caches keep the same stacking and are written in place: a KV cache is a
 the :mod:`.ssm` NamedTuple of its stacked tensors, and ``caches["index"]``
 the per-slot lengths (B,).
 
-There is no scan, and the layers are not rematerialised in the backward
-pass (the reference remats each super-block); only the cross-entropy's
-chunks are (:func:`loss_fn`).
+There is no scan. While autograd records, each super-block of the main
+stack and each encoder layer runs under ``torch.utils.checkpoint`` with
+the policy ``cfg.remat_policy`` names, as the reference wraps them in
+``jax.checkpoint``: ``nothing_saveable`` (the default) keeps only each
+super-block's input and recomputes the rest in the backward pass;
+``dots_saveable`` also keeps the outputs of every matmul (``mm``,
+``addmm``, ``bmm``, ``baddbmm``), ``dots_with_no_batch_dims_saveable``
+those of the unbatched ones; ``everything_saveable`` does not
+rematerialise. The cross-entropy's chunks are recomputed too
+(:func:`loss_fn`).
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Any, Dict, Optional, Tuple
 
 import torch
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from ..tree import leaves, rebuild, tree_map
 from . import ssm
@@ -51,6 +60,19 @@ def _stack(trees):
 def _at(tree, *idx):
     """``tree`` with every leaf indexed by ``idx`` (views)."""
     return tree_map(lambda v: v[idx], tree)
+
+
+def _unstack(tree, depth: int = 1):
+    """``tree``'s layers along its leaves' first ``depth`` stacked axes: a
+    nested list of trees of views. Each leaf is unbound once, so the
+    backward pass stacks the layers' gradients in one op; indexing each
+    layer instead would add a zero-padded copy of the whole stacked leaf
+    per layer."""
+    flat = leaves(tree)
+    cols = [v.unbind(0) for _, v in flat]
+    out = [rebuild(tree, iter([c[i] for c in cols]))
+           for i in range(flat[0][1].shape[0])]
+    return out if depth == 1 else [_unstack(t, depth - 1) for t in out]
 
 
 # ---------------------------------------------------------------------------
@@ -204,16 +226,67 @@ def _apply_attn_mlp(pl: Params, x, cfg: ArchConfig, positions, *,
     return x + h2, aux
 
 
+# the reference's jax.checkpoint policies: which outputs a rematerialised
+# super-block keeps for the backward pass (None: every matmul is recomputed)
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+_BATCHED_DOTS = (torch.ops.aten.bmm.default, torch.ops.aten.baddbmm.default)
+REMAT_POLICIES = {
+    "nothing_saveable": None,
+    "dots_saveable": _DOTS + _BATCHED_DOTS,
+    "dots_with_no_batch_dims_saveable": _DOTS,
+    "everything_saveable": None,
+}
+
+
+def _saving(ops):
+    """A selective-checkpoint policy that keeps the outputs of ``ops``."""
+    def policy(ctx, op, *args, **kwargs):
+        return (CheckpointPolicy.MUST_SAVE if op in ops
+                else CheckpointPolicy.PREFER_RECOMPUTE)
+    return functools.partial(create_selective_checkpoint_contexts, policy)
+
+
+def _direct(fn, *args):
+    return fn(*args)
+
+
+def _rematerialiser(cfg: ArchConfig, tree: Params, x: torch.Tensor):
+    """``call(fn, *args)``: ``fn(*args)`` under ``cfg.remat_policy``, as the
+    reference wraps each super-block in ``jax.checkpoint``. The wrapper is
+    only put on while autograd records a graph through ``x`` or a leaf of
+    ``tree``, so prefill and decode run plain and write their caches in
+    place; ``everything_saveable`` never puts it on."""
+    if cfg.remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"unknown remat_policy {cfg.remat_policy!r}; have "
+                         f"{sorted(REMAT_POLICIES)}")
+    saved = REMAT_POLICIES[cfg.remat_policy]
+    if (cfg.remat_policy == "everything_saveable"
+            or not torch.is_grad_enabled()
+            or not (x.requires_grad
+                    or any(t.requires_grad for _, t in leaves(tree)))):
+        return _direct
+    kw = {"context_fn": _saving(saved)} if saved else {}
+    return lambda fn, *args: checkpoint(fn, *args, use_reentrant=False, **kw)
+
+
 def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
                *, caches: Optional[Dict[str, Any]], cache_index,
                cross_kv: Optional[torch.Tensor]
                ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The main stack over ``x`` (B, T, D): (x', aux). Caches are written
-    in place."""
+    in place. Without caches each super-block is rematerialised under
+    ``cfg.remat_policy``; zamba2's shared attention params, used by every
+    super-block, collect their gradient over all recomputed applications."""
     fam = cfg.family
     n_super, per = superblock_plan(cfg)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     use_cache = caches is not None
+    call = _direct if use_cache else _rematerialiser(cfg, params, x)
+
+    nested = fam in ("vlm", "hybrid") or (fam == "ssm"
+                                          and bool(cfg.xlstm_slstm_every))
+    layers = {k: _unstack(params[k], 2 if k == "blocks" and nested else 1)
+              for k in ("blocks", "cross_blocks", "slstm_blocks")
+              if k in params}
 
     def cache_at(key, *idx):
         return _at(caches[key], *idx) if use_cache else None
@@ -229,58 +302,68 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
                 view.copy_(leaf)
         return x + dx
 
-    if fam in ("dense", "moe"):
-        for l in range(n_super):
-            pl = tree_map(lambda v: v[l], params["blocks"])
+    def super_block(x, i):
+        """Super-block ``i`` over ``x``: (x', its aux loss or None)."""
+        if fam in ("dense", "moe"):
             cache = None
             if use_cache:
-                cache = KVCache(caches["blocks"].k[l], caches["blocks"].v[l])
-            x, a = _apply_attn_mlp(pl, x, cfg, positions,
-                                   use_moe=fam == "moe", window=cfg.window,
-                                   cache=cache, cache_index=cache_index)
-            aux = aux + a
-    elif fam == "vlm":
-        for i in range(n_super):
-            x = attn_mlp(_at(params["cross_blocks"], i), x,
+                cache = KVCache(caches["blocks"].k[i], caches["blocks"].v[i])
+            return _apply_attn_mlp(layers["blocks"][i], x, cfg,
+                                   positions, use_moe=fam == "moe",
+                                   window=cfg.window, cache=cache,
+                                   cache_index=cache_index)
+        if fam == "vlm":
+            x = attn_mlp(layers["cross_blocks"][i], x,
                          cache_at("cross_blocks", i), cross_kv=cross_kv)
             for j in range(per - 1):
-                x = attn_mlp(_at(params["blocks"], i, j), x,
+                x = attn_mlp(layers["blocks"][i][j], x,
                              cache_at("blocks", i, j))
-    elif fam == "hybrid":
-        for i in range(n_super):
+        elif fam == "hybrid":
             x = attn_mlp(params["shared_attn"], x, cache_at("shared_attn", i))
             for j in range(per):
-                x = recurrent(ssm.mamba2_apply, _at(params["blocks"], i, j),
+                x = recurrent(ssm.mamba2_apply, layers["blocks"][i][j],
                               x, cache_at("blocks", i, j))
-    elif fam == "ssm" and cfg.xlstm_slstm_every:
-        for i in range(n_super):
+        elif fam == "ssm" and cfg.xlstm_slstm_every:
             for j in range(per - 1):
-                x = recurrent(ssm.mlstm_apply, _at(params["blocks"], i, j),
+                x = recurrent(ssm.mlstm_apply, layers["blocks"][i][j],
                               x, cache_at("blocks", i, j))
-            x = recurrent(ssm.slstm_apply, _at(params["slstm_blocks"], i), x,
+            x = recurrent(ssm.slstm_apply, layers["slstm_blocks"][i], x,
                           cache_at("slstm_blocks", i))
-    elif fam == "ssm":
-        for i in range(n_super):
-            x = recurrent(ssm.mlstm_apply, _at(params["blocks"], i), x,
+        elif fam == "ssm":
+            x = recurrent(ssm.mlstm_apply, layers["blocks"][i], x,
                           cache_at("blocks", i))
-    elif fam == "audio":
-        for i in range(n_super):
-            x = attn_mlp(_at(params["blocks"], i), x, cache_at("blocks", i),
+        elif fam == "audio":
+            x = attn_mlp(layers["blocks"][i], x, cache_at("blocks", i),
                          cross_kv=cross_kv)
-    else:
-        raise ValueError(f"unknown family {fam}")
+        else:
+            raise ValueError(f"unknown family {fam}")
+        return x, None
+
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    for i in range(n_super):
+        x, a = call(super_block, x, i)
+        if a is not None:
+            aux = aux + a
     return x, aux
 
 
-def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor
-            ) -> torch.Tensor:
+def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
+            remat: bool = True) -> torch.Tensor:
     """frames (B, T_enc, D), the stub frontend's embeddings -> the encoder's
-    states after ``enc_norm`` (bidirectional self-attention layers)."""
+    states after ``enc_norm`` (bidirectional self-attention layers, each
+    rematerialised under ``cfg.remat_policy`` while autograd records, unless
+    ``remat`` is false, as in a prefill)."""
     x = frames
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
+    call = _rematerialiser(cfg, params["enc_blocks"], x) if remat else _direct
+    enc = _unstack(params["enc_blocks"])
+
+    def layer(x, l):
+        return _apply_attn_mlp(enc[l], x, cfg, positions, use_moe=False,
+                               causal=False)[0]
+
     for l in range(cfg.n_encoder_layers):
-        x, _ = _apply_attn_mlp(_at(params["enc_blocks"], l), x, cfg,
-                               positions, use_moe=False, causal=False)
+        x = call(layer, x, l)
     return rmsnorm(params["enc_norm"], x, cfg.norm_eps)
 
 
@@ -320,7 +403,8 @@ def _backbone(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
             raise ValueError("the audio family needs encoder_frames (stub "
                              "frontend) or caches holding enc_out")
         else:
-            cross_kv = _encode(params, cfg, encoder_frames)
+            cross_kv = _encode(params, cfg, encoder_frames,
+                               remat=caches is None)
             if caches is not None:
                 caches = dict(caches, enc_out=cross_kv)
     x, aux = _run_stack(params, cfg, x, positions, caches=caches,

@@ -19,10 +19,19 @@ loop over that dimension: each pod's leaf is a contiguous 2-D view
 copy is made (the reference pads with ``jnp.pad``; the bytes are the
 same).
 
-This is the single-process form (the reference's ``replicate_spec=None``):
-every pod lives in this process, so the decode of all pods' payloads is the
-decode of each pod's own, done once. The exchange of ``(ids, blocks)``
-across processes is not ported yet.
+Two forms:
+
+* single-process (``group=None``, the reference's ``replicate_spec=None``):
+  every pod lives in this process, so the decode of all pods' payloads is
+  the decode of each pod's own, done once;
+* across ranks (``group=`` a ``torch.distributed`` process group): each
+  rank holds its own slab of the pod dimension (its pods' leaves, leading
+  dim ``n_local``, ranks in pod order, as the reference's ``P('pod')``
+  array is laid out), compresses it, and ``all_gather``s the compressed
+  payload ``(ids, blocks)`` over the group, which is what the reference's
+  ``replicate_spec`` makes XLA send. Every rank then decodes every pod's
+  payload and takes the same mean. The reference forces the gather with a
+  sharding constraint; here it is an explicit collective.
 """
 
 from __future__ import annotations
@@ -70,23 +79,36 @@ def _compress_leaf(e: torch.Tensor, ratio: float, block=DEFAULT_BLOCK):
     return ids, blocks, x2_shape, bs
 
 
+def gather_pods(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` of every rank of ``group``, concatenated in rank order along
+    the leading dim."""
+    import torch.distributed as dist
+    parts = [torch.empty_like(x) for _ in range(dist.get_world_size(group))]
+    dist.all_gather(parts, x.contiguous(), group=group)
+    return torch.cat(parts)
+
+
 def compressed_grad_mean(grads_podwise: Any, residuals: Any, *,
                          ratio: float = 0.05, block=DEFAULT_BLOCK,
-                         with_payload: bool = False
+                         with_payload: bool = False, group: Any = None
                          ) -> Tuple[Any, Any, Dict[str, Any]]:
-    """grads_podwise: tree of tensors, each leaf ``(n_pods, ...)``.
+    """grads_podwise: tree of tensors, each leaf ``(n_pods, ...)``, or this
+    rank's ``(n_local, ...)`` slab of them when ``group`` is given.
 
     Returns ``(mean_decoded_grads (no pod dim, f32), new_residuals (f32,
-    pod dim first), stats)``. ``stats`` counts ``sent_bytes`` (the payload:
-    int32 ids and f32 blocks of every pod) and ``dense_bytes`` (the f32
-    gradients) as the reference does. ``with_payload=True`` also returns
+    pod dim first, this rank's slab), stats)``. ``stats`` counts
+    ``sent_bytes`` (the payload: int32 ids and f32 blocks of every pod,
+    which is what the gather moves) and ``dense_bytes`` (the f32 gradients
+    of every pod) as the reference does. ``with_payload=True`` also returns
     that payload, ``stats["payload"] = {leaf path: (ids (pods, k), blocks
-    (pods, k, bh, bw))}``, what a cross-process exchange would send;
-    otherwise each leaf's payload is freed once it is decoded.
+    (pods, k, bh, bw))}`` of every pod (gathered, with a group); otherwise
+    each leaf's payload is freed once it is decoded.
 
     Each leaf's ``e = g + r`` is a new f32 tensor, and the new residual is
     computed in place in it; the decode scatters in place into a zero
-    buffer. The inputs are not modified.
+    buffer. The inputs are not modified. With a group, every rank must
+    call this with the same tree structure and shapes (collectives run
+    leaf by leaf).
     """
     stats: Dict[str, Any] = {"sent_bytes": 0, "dense_bytes": 0}
     payload = {}
@@ -94,21 +116,28 @@ def compressed_grad_mean(grads_podwise: Any, residuals: Any, *,
     r_leaves = _leaves(residuals)
     if [p for p, _ in g_leaves] != [p for p, _ in r_leaves]:
         raise ValueError("residuals do not have the structure of the grads")
+    first = 0
+    if group is not None:
+        import torch.distributed as dist
+        first = dist.get_rank(group) * g_leaves[0][1].shape[0]
     means, new_rs = [], []
     for (path, g), (_, r) in zip(g_leaves, r_leaves):
         e = g.to(torch.float32) + r
-        pods = e.shape[0]
+        local = e.shape[0]
         ids, blocks, x2_shape, _ = _compress_leaf(e, ratio, block)
+        if group is not None:   # the exchange: only the payload crosses
+            ids, blocks = gather_pods(ids, group), gather_pods(blocks, group)
+        pods = ids.shape[0]
         decoded = torch.zeros((pods,) + x2_shape, dtype=torch.float32,
                               device=e.device)
         for p in range(pods):
             ops.block_scatter(decoded[p], ids[p], blocks[p], inplace=True)
         means.append(decoded.sum(dim=0).div_(pods).reshape(g.shape[1:]))
-        ev = e.view((pods,) + x2_shape)
-        ev.sub_(decoded)
+        ev = e.view((local,) + x2_shape)
+        ev.sub_(decoded[first:first + local])
         new_rs.append(e)
         stats["sent_bytes"] += int(ids.numel() * 4 + blocks.numel() * 4)
-        stats["dense_bytes"] += int(e.numel() * 4)
+        stats["dense_bytes"] += int(e.numel() // local * pods * 4)
         if with_payload:
             payload[path] = (ids, blocks)
         del decoded, ids, blocks

@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 from dataclasses import dataclass
-from typing import Any, Dict, NamedTuple, Tuple
+from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -85,12 +85,15 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 @torch.no_grad()
-def update(cfg: OptConfig, grads: Any, state: OptState, params: Any
+def update(cfg: OptConfig, grads: Any, state: OptState, params: Any, *,
+           grad_norm: Optional[torch.Tensor] = None
            ) -> Tuple[Any, OptState, Dict[str, torch.Tensor]]:
     """One AdamW step. ``params`` and the moments of ``state`` are updated
     in place and returned, with the new count and the metrics ``lr`` and
-    ``grad_norm`` (the norm before clipping)."""
-    gnorm = global_norm(grads)
+    ``grad_norm`` (the norm before clipping). ``grad_norm`` replaces
+    ``global_norm(grads)`` where ``grads`` is one rank's slab of a larger
+    tree whose norm the clip must use."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = state.count + 1
     lr = schedule(cfg, count)

@@ -11,7 +11,9 @@ Two variants, as in the reference:
   gradient is BSGS-top-k compressed with error feedback by
   :func:`grad_compress.compressed_grad_mean`, whose ``block_norms``,
   ``block_gather`` and ``block_scatter`` kernels run on the card, and every
-  pod applies the same decoded mean.
+  pod applies the same decoded mean. The pods are a loop in one process,
+  or, given a ``torch.distributed`` group, one slab of them on each rank,
+  which exchange only the compressed payload.
 
 A step takes a state and a batch and returns ``(new state, metrics)``. The
 new state holds the same param and moment tensors, updated in place (the
@@ -21,7 +23,8 @@ tensors. Metrics are 0-d tensors on the card: reading one waits for the
 step.
 
 The reference's ``state_shardings``, ``jit_train_step`` and ``mesh``
-arguments place the state with GSPMD; they have no counterpart here.
+arguments place the state with GSPMD; they have no counterpart here (the
+compressed step's ``group`` stands for its ``mesh``).
 """
 
 from __future__ import annotations
@@ -108,23 +111,36 @@ def init_compressed_state(cfg: ArchConfig, gen: Optional[torch.Generator],
 
 
 def make_compressed_train_step(cfg: ArchConfig, ocfg: opt.OptConfig,
-                               ratio: float = 0.05):
+                               ratio: float = 0.05, group: Any = None):
     """``train_step(state, batch) -> (state', metrics)``; ``batch`` leaves
     are (n_pods, local_batch, T). The loss is the mean of the pods' totals,
     so each pod's gradient carries 1/n_pods, as the reference's
     ``value_and_grad`` of the mean gives it. Metrics: ``loss``, ``lr``,
-    ``grad_norm``, ``wire_ratio``."""
+    ``grad_norm``, ``wire_ratio``.
+
+    With a ``torch.distributed`` ``group``, the state and batch are this
+    rank's slab of the pod dimension (ranks in pod order): the compressed
+    payload is gathered over the group (:func:`grad_compress.
+    compressed_grad_mean`), the pods' losses too, and the clip uses the
+    norm of the whole podded gradient, so each rank's slab ends the step
+    as the single-process run's pods would."""
+    world = 1
+    if group is not None:
+        import torch.distributed as dist
+        world = dist.get_world_size(group)
+
     def _scaled_total(params, batch, n_pods):
         total = transformer.loss_fn(params, cfg, batch)[0]
         return total / n_pods, total
 
     def train_step(state: CompressedTrainState, batch: Dict[str, torch.Tensor]):
         flat = leaves(state.params)
-        n_pods = flat[0][1].shape[0]
+        n_local = flat[0][1].shape[0]
+        n_pods = n_local * world
         grads = tree_map(torch.empty_like, state.params)
         g_flat = [g for _, g in leaves(grads)]
         losses = []
-        for i in range(n_pods):
+        for i in range(n_local):
             # pods share no param, so each pod's backward is its own
             pod_params = rebuild(state.params, iter([p[i] for _, p in flat]))
             pod_batch = {k: v[i] for k, v in batch.items()}
@@ -134,14 +150,21 @@ def make_compressed_train_step(cfg: ArchConfig, ocfg: opt.OptConfig,
                 dst[i].copy_(src)
             losses.append(total.detach())
             del g_i
-        loss = torch.stack(losses).mean()
+        losses = torch.stack(losses)
+        if group is not None:
+            losses = grad_compress.gather_pods(losses, group)
+        loss = losses.mean()
         mean_g, new_res, stats = grad_compress.compressed_grad_mean(
-            grads, state.residual, ratio=ratio)
+            grads, state.residual, ratio=ratio, group=group)
         del grads
-        podded_g = tree_map(lambda g: g[None].expand((n_pods,) + g.shape),
+        # the clip's norm is over every pod's copy of the mean, as the
+        # reference's podded gradient has them, on a rank of a group too
+        norm = opt.global_norm(tree_map(
+            lambda g: g[None].expand((n_pods,) + g.shape), mean_g))
+        podded_g = tree_map(lambda g: g[None].expand((n_local,) + g.shape),
                             mean_g)
         params, new_opt, om = opt.update(ocfg, podded_g, state.opt,
-                                         state.params)
+                                         state.params, grad_norm=norm)
         metrics = dict(om, loss=loss, wire_ratio=(
             grad_compress.compression_ratio_bytes(stats)))
         return CompressedTrainState(params=params, opt=new_opt,

@@ -386,6 +386,10 @@ def test_import_without_jax_repro_or_ml_dtypes(tmp_path):
         import repro_torch.train, repro_torch.train.optimizer
         import repro_torch.train.trainer, repro_torch.train.checkpoint
         import repro_torch.launch.train, repro_torch.examples.train_lm
+        import repro_torch.launch.serve, repro_torch.launch.ingest
+        import repro_torch.launch.gc, repro_torch.configs.paper_store
+        import repro_torch.examples.quickstart
+        import repro_torch.examples.grad_compression
         from repro_torch.core import DeltaTensorStore
         from repro_torch.lake import LocalFSObjectStore
         store = DeltaTensorStore(LocalFSObjectStore({str(tmp_path)!r}), "t",
