@@ -141,10 +141,25 @@ Phases, each of which exits non-zero on failure:
    and ``repro_torch.launch.serve`` over that checkpoint (``--ckpt-gc-keep
    1``, 8 requests, 4 slots), whose tokens must equal an in-process
    ``ServeEngine``'s over the restored params;
-8. print the card's name and power limit, one JSON line of per-kernel
+8. the mesh tooling (``repro_torch.dist``, ``launch.dryrun``,
+   ``analysis``), which launches none of the repo's kernels: (a) on a real
+   1-rank NCCL group, ``jit_train_step`` over a (1, 1) mesh from phase 7's
+   granite-3-8b L-layer state (the same seed) and a batch of 8x256 corpus
+   tokens, held to ``make_train_step`` from the same state with phase 7's
+   step-1 bounds (every placement is Replicate; the byte-identical leaves
+   are printed); (c) that plain step counted by ``op_cost``: its FLOPs over
+   ``accounting.model_flops`` (core + attention) must lie in [1.0, 2.0]
+   (remat and the CE chunks recompute the forward), printed beside the
+   counted-FLOPs and 6 N D shares of 989 TFLOP/s; (b) ``python -m
+   repro_torch.launch.dryrun`` as rank 0 of whisper-tiny x train_4k on a
+   (4, 4) mesh and granite-3-8b x train_4k on the production (16, 16) mesh,
+   under a fake process group, each on the card (its own shards, random
+   values: peak memory, a warm step's time, op_cost's counts) and on meta
+   (counts only); the card's FLOPs must equal meta's;
+9. print the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path: read, stream, compress, serve, one serve
-   path per family of 6b, train, train_zamba2, train_whisper), and as the
-   last line ``{"ok": true, "device": {...}}``.
+   path per family of 6b, train, train_zamba2, train_whisper, mesh), and as
+   the last line ``{"ok": true, "device": {...}}``.
 
 It imports nothing of jax or of the JAX package ``repro``.
 """
@@ -155,6 +170,7 @@ import argparse
 import functools
 import json
 import math
+import os
 import re
 import shutil
 import subprocess
@@ -2766,6 +2782,191 @@ def deep_train_path(torch, np, workdir):
     return paths
 
 
+# -- phase 8: the mesh tooling ----------------------------------------------------
+
+# one rank of each cell on the card under a fake process group: whisper-tiny
+# on the (4, 4) mesh the reference's smoke test compiles, granite-3-8b on
+# the production (16, 16) mesh
+MESH_CELLS = (("whisper-tiny", "train_4k", "4x4"),
+              ("granite-3-8b", "train_4k", "single"))
+FLOPS_RATIO = (1.0, 2.0)   # 8c: counted FLOPs over model_flops core + attention
+DRYRUN_S = 600
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def dryrun_cells(workdir):
+    """8b: each cell as rank 0 of its mesh, on the card and on meta, one
+    process each (the two cards' runs one after the other, the meta runs
+    beside them). Returns {cell: {device: record}}."""
+    env = dict(os.environ, PYTHONPATH=str(SRC))
+
+    def start(cell, device):
+        arch, shape, mesh = cell
+        log_f = open(workdir / f"{arch}_{mesh}_{device}.log", "w")
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
+             "--shape", shape, "--mesh", mesh, "--device", device, "--out",
+             str(workdir), "--force"], env=env, stdout=log_f,
+            stderr=subprocess.STDOUT, cwd=str(ROOT))
+        return proc, log_f
+
+    def finish(cell, device, job):
+        proc, log_f = job
+        try:
+            proc.wait(timeout=DRYRUN_S)
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            proc.wait()
+        log_f.close()
+        arch, shape, mesh = cell
+        rec_path = workdir / f"{arch}__{shape}__{mesh}__{device}.json"
+        text = (workdir / f"{arch}_{mesh}_{device}.log").read_text()
+        if proc.returncode != 0 or not rec_path.exists():
+            fail(f"dry run {cell} on {device}: exit {proc.returncode}\n"
+                 f"{text[-3000:]}")
+        return json.loads(rec_path.read_text())
+
+    out = {cell: {} for cell in MESH_CELLS}
+    metas = {cell: start(cell, "meta") for cell in MESH_CELLS}
+    for cell in MESH_CELLS:
+        out[cell]["cuda"] = finish(cell, "cuda", start(cell, "cuda"))
+    for cell, job in metas.items():
+        out[cell]["meta"] = finish(cell, "meta", job)
+    return out
+
+
+def mesh_path(torch, np, layers, workdir):
+    """8: the mesh tooling. (a) ``jit_train_step`` on a real 1-rank NCCL
+    group and a (1, 1) mesh against ``make_train_step`` from the same
+    granite-3-8b L-layer state and batch; (c) op_cost over that plain step
+    against ``accounting.model_flops``; (b) one rank of each MESH_CELLS
+    cell on the card under a fake process group, against the same cell
+    counted on meta. Returns the launches of (a) and (c)."""
+    import torch.distributed as dist
+    from repro_torch import kernels as kern
+    from repro_torch.analysis import accounting, op_cost
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.train import optimizer as opt
+    from repro_torch.train import trainer
+    from repro_torch.tree import leaves, tree_map
+
+    dev = torch.device("cuda")
+    cfg = serve_config(layers)
+    ocfg = opt.OptConfig(**TRAIN_OPT)
+    tok = token_stream(TRAIN_SAMPLES, TRAIN_T, cfg.vocab_size, seed=0)[:TRAIN_B]
+    lab = np.concatenate([tok[:, 1:], np.full((TRAIN_B, 1), -1, np.int32)], 1)
+    batch = {"tokens": torch.as_tensor(tok).to(dev),
+             "labels": torch.as_tensor(lab).to(dev)}
+    reset_counts(kern)
+    t_phase = time.perf_counter()
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
+                            rank=0, world_size=1)
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        gen = torch.Generator(device=dev).manual_seed(0)
+        state = trainer.init_state(cfg, gen, device=dev)
+        plain = tree_map(torch.clone, state)
+        step = trainer.make_train_step(cfg, ocfg)
+        # 8c: phase 7's step, counted
+        box = {}
+        cost = op_cost.analyze(lambda: box.update(out=step(plain, batch)))
+        plain, pm = box.pop("out")
+        torch.cuda.synchronize()
+        # 8a: the mesh step from the same state
+        mstep, placed = trainer.jit_train_step(cfg, ocfg, mesh, state)
+        del state
+        t0 = time.perf_counter()
+        placed, mm = mstep(placed, batch)
+        torch.cuda.synchronize()
+        mesh_ms = (time.perf_counter() - t0) * 1e3
+        for k in ("loss", "grad_norm", "lr"):
+            got, want = float(mm[k]), float(pm[k])
+            log(f"[mesh] step 1 {k}: jit_train_step {got!r}, make_train_step "
+                f"{want!r}, relative {abs(got - want) / abs(want)!r} (limit "
+                f"{STEP_RTOL})")
+            if not abs(got - want) <= STEP_RTOL * abs(want):
+                fail(f"the mesh step's {k} {got!r} differs from the plain "
+                     f"step's {want!r}")
+        within = total = same = 0
+        for (name, p), (_, q) in zip(leaves(placed.params), leaves(plain.params)):
+            p = p.to_local()
+            d = (p.float() - q.float()).abs()
+            within += int((d <= bf16_ulp(torch, q)).sum())
+            total += d.numel()
+            same += same_bytes(p, q)
+        share = within / total
+        log(f"[mesh] (1, 1) mesh on a 1-rank NCCL group, every placement "
+            f"Replicate: {within} of {total} params within one bf16 ulp of "
+            f"make_train_step's, share {share!r} (limit {ULP_SHARE}); "
+            f"byte-identical leaves {same} of {len(leaves(plain.params))}; "
+            f"the mesh step {mesh_ms!r} ms (its first call: DTensor's "
+            f"sharding propagation included)")
+        if share < ULP_SHARE:
+            fail(f"only {share!r} of the mesh step's params are within one "
+                 f"bf16 ulp of the plain step's")
+        del placed, mm
+        torch.cuda.empty_cache()
+        # 8c: counted FLOPs against the analytic ones; a warm step's time
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain, _ = step(plain, batch)
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t0
+        model = accounting.model_flops(cfg, "train", TRAIN_B, TRAIN_T)
+        want = model["model_flops"] + model["attn_flops"]
+        ratio = cost.flops / want
+        log(f"[op_cost] {cfg.name} L = {layers}, {TRAIN_B}x{TRAIN_T} tokens: "
+            f"counted {cost.flops!r} FLOPs, {cost.bytes!r} bytes (no fusion), "
+            f"collectives {json.dumps(cost.coll_bytes)}; model_flops "
+            f"{model['model_flops']!r} + attn_flops {model['attn_flops']!r} = "
+            f"{want!r}; ratio {ratio!r} (limits {FLOPS_RATIO}); a warm step "
+            f"{step_s * 1e3!r} ms: counted FLOPs share "
+            f"{cost.flops / step_s / PEAK_BF16_FLOPS!r}, 6 N D share "
+            f"{model['model_flops'] / step_s / PEAK_BF16_FLOPS!r} of 989 "
+            f"TFLOP/s")
+        if not FLOPS_RATIO[0] <= ratio <= FLOPS_RATIO[1]:
+            fail(f"counted FLOPs over model_flops {ratio!r} outside "
+                 f"{FLOPS_RATIO}")
+        del plain
+    finally:
+        dist.destroy_process_group()
+    counts = kern.launch_counts()
+    torch.cuda.empty_cache()
+
+    # 8b: one rank of each cell on the card, and the same cell on meta
+    records = dryrun_cells(workdir)
+    for cell, recs in records.items():
+        name = " x ".join(cell)
+        for device, r in recs.items():
+            if r["status"] != "ok":
+                fail(f"dry run {name} on {device}: {r.get('error')}\n"
+                     f"{r.get('traceback', '')[-2000:]}")
+        cu, me = recs["cuda"], recs["meta"]
+        c, m = cu["corrected"], me["corrected"]
+        log(f"[dryrun {name}] rank 0 of {cu['n_devices']} ({cu['profile']}): "
+            f"peak {cu['memory']['peak_allocated_bytes']} B, arguments "
+            f"{cu['memory']['argument_size_in_bytes']} B, warm step "
+            f"{cu['step_s'] * 1e3!r} ms; op_cost on the card: {c['flops']!r} "
+            f"FLOPs, {c['bytes']!r} bytes, collectives "
+            f"{json.dumps(c['coll_bytes'])} {json.dumps(c['coll_count'])}; on "
+            f"meta: {m['flops']!r} FLOPs, {m['bytes']!r} bytes, collectives "
+            f"{json.dumps(m['coll_bytes'])}; analytic model_flops "
+            f"{cu['analytic']['model_flops']!r} over all ranks")
+        if c["flops"] != m["flops"]:
+            fail(f"dry run {name}: the card counted {c['flops']!r} FLOPs, "
+                 f"meta {m['flops']!r}")
+    log(f"[mesh] phase 8 {time.perf_counter() - t_phase!r} s; launches "
+        f"{json.dumps(counts)}")
+    return counts
+
+
 def nvidia_smi_line() -> str:
     r = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                         "--format=csv,noheader"], capture_output=True,
@@ -2863,7 +3064,14 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # 8. report
+    # 8. the mesh tooling: the mesh step, op_cost and one rank of two cells
+    workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=workroot))
+    try:
+        paths["mesh"] = mesh_path(torch, np, args.layers, workdir)
+    finally:
+        shutil.rmtree(workdir, ignore_errors=True)
+
+    # 9. report
     rows = []
     for name in REPLACES:
         ms, plain_ms, lib_ms, bound_ms = times[name]

@@ -1,0 +1,293 @@
+"""Sharding rule engine: DTensor placements for params, opt state, batch.
+The port of ``repro.dist.sharding``, whose GSPMD partition specs it keeps
+rule for rule.
+
+One place decides how every tensor lays out over the mesh:
+
+* ``batch_axes(mesh)``: the data-parallel axes (``("pod", "data")`` on the
+  multi-pod mesh, ``("data",)`` otherwise); batches shard their leading
+  dim over them.
+* ``params_shardings`` / ``opt_state_shardings``: per-leaf
+  :class:`NamedSharding`. Profile ``tp`` shards each weight's largest
+  divisible dim over ``model``; ``fsdp_tp`` also shards a second dim over
+  the data axes (ZeRO-3 style). Optimizer moments always take the data
+  axes too (ZeRO-1): they are touched once per step, so their gathers are
+  off the critical path.
+* ``constrain(x, axes)``: a layout for model code. ``axes`` entries are
+  ``"batch"`` (the data axes), ``"model"``, a literal mesh axis name, or
+  ``None``. First-divisible-wins: when several dims name the same mesh
+  axis, the first whose extent divides the axis size takes it and the rest
+  stay replicated (a mesh axis can partition only one dim). Outside
+  :func:`use_mesh` it is the identity.
+* ``shard_map_batch(fn, *args)``: run ``fn`` batch-locally on each rank's
+  rows (for the MoE dispatch's batched gathers and tables). Outside
+  :func:`use_mesh` it is ``fn(*args)``. ``local_call`` is the same for any
+  one layout shared by the args (attention's batch and heads).
+
+A :class:`NamedSharding` keeps the reference's per-dim spec (a tuple of
+``None``, an axis name or a tuple of axis names, as ``PartitionSpec``
+holds it) beside the torch placements it means: one ``Shard(d)`` or
+``Replicate()`` per mesh dim. A tuple entry puts several mesh dims on one
+tensor dim, major first, as DTensor orders repeated ``Shard(d)``. The rules
+read only a mesh's dim names and sizes, so they run on a torch
+``DeviceMesh`` or on an :class:`AbstractMesh` of any size without a
+process group, as the reference's run on ``jax.sharding.AbstractMesh``.
+
+Where the reference hints with ``with_sharding_constraint`` and lets GSPMD
+choose the collectives, ``constrain`` redistributes: the layout it asks for
+is the one the next op sees. A tensor that is not a DTensor (one the model
+makes for itself) counts as replicated.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import math
+from dataclasses import dataclass
+from typing import Any, Iterator, List, Optional, Sequence, Tuple, Union
+
+import torch
+
+from ..tree import leaves, rebuild
+
+MODEL = "model"
+DATA = "data"
+POD = "pod"
+
+Spec = Tuple[Any, ...]
+
+
+@dataclass(frozen=True)
+class AbstractMesh:
+    """A mesh's dim sizes and names, with no devices: what the rules need,
+    the counterpart of ``jax.sharding.AbstractMesh``."""
+
+    shape: Tuple[int, ...]
+    mesh_dim_names: Tuple[str, ...]
+
+
+def mesh_sizes(mesh: Any) -> dict:
+    """``{axis name: size}`` of a ``DeviceMesh`` or :class:`AbstractMesh`."""
+    return dict(zip(mesh.mesh_dim_names, (int(s) for s in mesh.shape)))
+
+
+@dataclass(frozen=True)
+class NamedSharding:
+    """A tensor's layout over ``mesh``: ``spec`` has one entry per tensor
+    dim (``None``, an axis name, or a tuple of axis names)."""
+
+    mesh: Any
+    spec: Spec
+
+    def __post_init__(self):
+        # as PartitionSpec holds them: a one-name tuple is the name, and an
+        # empty one is None
+        object.__setattr__(self, "spec", tuple(
+            (e[0] if len(e) == 1 else e or None) if isinstance(e, tuple) else e
+            for e in self.spec))
+
+    @property
+    def placements(self) -> tuple:
+        """One ``Shard(d)`` / ``Replicate()`` per mesh dim, in its order."""
+        from torch.distributed.tensor import Replicate, Shard
+        out = []
+        for name in self.mesh.mesh_dim_names:
+            dim = next((d for d, entry in enumerate(self.spec)
+                        if entry == name or (isinstance(entry, tuple)
+                                             and name in entry)), None)
+            out.append(Replicate() if dim is None else Shard(dim))
+        return tuple(out)
+
+
+# ---------------------------------------------------------------------------
+# the ambient mesh
+# ---------------------------------------------------------------------------
+
+# process-wide, not per thread or context: autograd runs the backward pass
+# of CUDA tensors on threads of its own, and a remat recompute there must
+# lay its tensors out as the forward pass did
+_MESHES: List[Any] = []
+
+
+def current_mesh() -> Optional[Any]:
+    """The mesh of the innermost :func:`use_mesh`, or None."""
+    return _MESHES[-1] if _MESHES else None
+
+
+@contextlib.contextmanager
+def use_mesh(mesh: Any) -> Iterator[Any]:
+    """Make ``mesh`` the ambient mesh of ``constrain`` and
+    ``shard_map_batch`` (the reference's ``with mesh:``)."""
+    _MESHES.append(mesh)
+    try:
+        yield mesh
+    finally:
+        _MESHES.pop()
+
+
+def batch_axes(mesh: Any) -> tuple:
+    """Mesh axes the batch dim shards over (pod-major on multi-pod meshes).
+
+    Always a tuple: callers iterate it and splice it into specs (a tuple of
+    names is a valid single-dim spec entry).
+    """
+    return tuple(a for a in (POD, DATA) if a in mesh.mesh_dim_names)
+
+
+def _axes_size(mesh: Any, axes: Union[str, tuple, None]) -> int:
+    if axes is None or axes == ():
+        return 1
+    if isinstance(axes, str):
+        axes = (axes,)
+    sizes = mesh_sizes(mesh)
+    return math.prod(sizes[a] for a in axes)
+
+
+# ---------------------------------------------------------------------------
+# layouts for model code
+# ---------------------------------------------------------------------------
+
+
+def _resolve_spec(shape: Sequence[int], axes: Sequence[Any], mesh: Any) -> Spec:
+    spec: List[Any] = [None] * len(shape)
+    used: set = set()
+    for d, want in enumerate(axes[: len(shape)]):
+        if want is None:
+            continue
+        resolved = batch_axes(mesh) if want == "batch" else want
+        if resolved is None or resolved == ():
+            continue
+        names = (resolved,) if isinstance(resolved, str) else tuple(resolved)
+        if any(n not in mesh.mesh_dim_names or n in used for n in names):
+            continue
+        size = _axes_size(mesh, names)
+        # first-divisible-wins: an indivisible dim stays replicated (e.g.
+        # kv heads % model on GQA archs)
+        if size <= 1 or shape[d] % size != 0:
+            continue
+        spec[d] = resolved
+        used.update(names)
+    return tuple(spec)
+
+
+def as_dtensor(x: torch.Tensor, mesh: Any):
+    """``x`` as a DTensor on ``mesh``: itself if it is one, else replicated
+    (the same tensor on every rank)."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if isinstance(x, DTensor):
+        return x
+    return DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
+                              run_check=False)
+
+
+def whole_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """``x`` with dim ``dim`` whole on every rank, its other placements
+    kept (a stacked layer axis before it is unbound); ``x`` itself when it
+    is not a DTensor or the dim is not split."""
+    from torch.distributed.tensor import DTensor, Replicate
+    if not isinstance(x, DTensor):
+        return x
+    placements = tuple(Replicate() if getattr(p, "dim", None) == dim else p
+                       for p in x.placements)
+    if placements == tuple(x.placements):
+        return x
+    return x.redistribute(x.device_mesh, placements)
+
+
+def constrain(x: torch.Tensor, axes: Sequence[Any]) -> torch.Tensor:
+    """``x`` laid out as ``axes`` asks on the ambient mesh (identity
+    outside one)."""
+    mesh = current_mesh()
+    if mesh is None:
+        return x
+    spec = _resolve_spec(x.shape, list(axes), mesh)
+    out = as_dtensor(x, mesh).redistribute(
+        mesh, NamedSharding(mesh, spec).placements)
+    # a shard of a dim past the first is a strided view of the whole, and
+    # DTensor's local views (einsum's reshapes) need it dense
+    return out if out.to_local().is_contiguous() else out.contiguous()
+
+
+def local_call(fn, placements: Sequence[Any], *args):
+    """Run ``fn`` on each rank's shards of ``args``, every one laid out as
+    ``placements`` on the ambient mesh; the outputs (tensors, or a tree of
+    them) come back as DTensors in the same layout. ``fn`` sees plain
+    tensors, so it may use any op, and must compute each output shard from
+    the matching input shards alone."""
+    from torch.distributed.tensor import DTensor
+    mesh = current_mesh()
+    local = [as_dtensor(a, mesh).redistribute(mesh, placements).to_local()
+             for a in args]
+    out = fn(*local)
+    return rebuild(out, iter([
+        DTensor.from_local(o, mesh, placements, run_check=False)
+        for _, o in leaves(out)]))
+
+
+def shard_map_batch(fn, *args):
+    """Run ``fn`` with each arg's leading (batch) dim split over the data
+    axes; outputs are reassembled on the same layout. Batch-local compute
+    only: ``fn`` must not reduce across the batch dim. Each rank calls
+    ``fn`` on plain tensors, its rows of every arg."""
+    mesh = current_mesh()
+    if mesh is None:
+        return fn(*args)
+    axes = batch_axes(mesh)
+    dsize = _axes_size(mesh, axes)
+    if dsize <= 1 or any(a.shape[0] % dsize != 0 for a in args):
+        return fn(*args)
+    return local_call(fn, NamedSharding(mesh, (axes,)).placements, *args)
+
+
+# ---------------------------------------------------------------------------
+# state shardings
+# ---------------------------------------------------------------------------
+
+
+def _leaf_sharding(shape: Sequence[int], mesh: Any, *,
+                   fsdp: bool) -> NamedSharding:
+    nd = len(shape)
+    spec: List[Any] = [None] * nd
+    msize = mesh_sizes(mesh).get(MODEL, 1)
+    # tensor-parallel dim: largest extent divisible by the model axis
+    if msize > 1 and nd >= 1:
+        for d in sorted(range(nd), key=lambda d: -shape[d]):
+            if shape[d] >= msize and shape[d] % msize == 0:
+                spec[d] = MODEL
+                break
+    if fsdp:
+        daxes = batch_axes(mesh)
+        dsize = _axes_size(mesh, daxes)
+        if dsize > 1:
+            for d in sorted(range(nd), key=lambda d: -shape[d]):
+                if spec[d] is None and shape[d] >= dsize and shape[d] % dsize == 0:
+                    spec[d] = daxes
+                    break
+    return NamedSharding(mesh, tuple(spec))
+
+
+def _map_leaves(fn, tree: Any) -> Any:
+    return rebuild(tree, iter([fn(tuple(x.shape)) for _, x in leaves(tree)]))
+
+
+def params_shardings(params: Any, cfg: Any, mesh: Any,
+                     profile: Optional[str] = None) -> Any:
+    """Tree of :class:`NamedSharding` matching ``params``.
+
+    ``profile`` overrides ``cfg.sharding_profile`` (``tp`` | ``fsdp_tp``).
+    """
+    profile = profile or getattr(cfg, "sharding_profile", "tp")
+    fsdp = profile == "fsdp_tp"
+    return _map_leaves(lambda s: _leaf_sharding(s, mesh, fsdp=fsdp), params)
+
+
+def opt_state_shardings(tree: Any, cfg: Any, mesh: Any,
+                        profile: Optional[str] = None) -> Any:
+    """Adam moments: ZeRO-1, always the data axes on top of TP.
+
+    Moments are read and written once per step (not per layer per
+    microbatch), so sharding them over data costs one reduce-scatter /
+    all-gather pair off the forward/backward critical path and divides
+    optimizer-state memory by the data-parallel degree.
+    """
+    return _map_leaves(lambda s: _leaf_sharding(s, mesh, fsdp=True), tree)

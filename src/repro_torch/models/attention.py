@@ -3,7 +3,13 @@ decode. The counterpart of ``repro.models.attention`` in plain PyTorch.
 
 The reference's prefill runs a chunked flash formulation in jnp (no Pallas
 kernel); here prefill attention is one masked softmax over the filled
-prefix, which is small at serving lengths. Scores and the softmax are f32
+prefix. Where its (B, Hq, T, S) f32 scores would pass ``ATTN_TILE_BYTES``
+(a train_4k batch: 34 GB a layer for one granite-3-8b rank), it goes one
+tile of ``cfg.attn_chunk_q`` query rows at a time, each row's softmax
+over all its keys in one go (so a tile's rows are what the whole would
+give them), and while autograd records each tile is recomputed in the
+backward pass, so no more than one tile's scores are held at a time.
+Scores and the softmax are f32
 (the reference's ``preferred_element_type=f32``), masked with the finite
 ``NEG_INF``, so a row with every key masked gives 0, not NaN.
 
@@ -14,11 +20,14 @@ arrays).
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple, Union
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import constrain, current_mesh, local_call
 from .config import ArchConfig
 from .layers import Params, dense_init, rope
 
@@ -60,19 +69,17 @@ def _project_qkv(p: Params, x: torch.Tensor, kv_x: torch.Tensor,
     return q, k, v
 
 
-def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                      causal: bool = True,
-                      window: Optional[int] = None) -> torch.Tensor:
-    """q: (B,T,Hq,Dh); k/v: (B,S,Hkv,Dh) with Hq % Hkv == 0. Query ``i`` sits
-    at position ``i`` and key ``j`` at ``j`` (the reference's
-    ``flash_attention`` with ``q_offset=0``). Returns (B,T,Hq,Dh)."""
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+            q_offset: int, causal: bool, window: Optional[int]) -> torch.Tensor:
+    """The masked softmax of the queries at ``q_offset + i`` over keys at
+    ``j``: q (B,T,Hq,Dh), k/v (B,S,Hkv,Dh) -> (B,T,Hq,Dh)."""
     b, t, hq, dh = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, t, hkv, g, dh)
     sc = torch.einsum("bthgd,bshd->bhgts", qg.float(), k.float())
     sc = sc * (1.0 / math.sqrt(dh))
-    q_pos = torch.arange(t, device=q.device)[:, None]
+    q_pos = q_offset + torch.arange(t, device=q.device)[:, None]
     k_pos = torch.arange(s, device=q.device)[None, :]
     keep = torch.ones((t, s), dtype=torch.bool, device=q.device)
     if causal:
@@ -87,6 +94,61 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     acc = torch.einsum("bhgts,bshd->bhgtd", p.to(v.dtype).float(), v.float())
     out = acc / denom[..., None]
     return out.permute(0, 3, 1, 2, 4).reshape(b, t, hq, dh).to(q.dtype)
+
+
+QKV_AXES = ["batch", None, "model", None]
+ATTN_TILE_BYTES = 4 << 30   # the most f32 scores one call holds at once
+
+
+def _tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+           causal: bool, window: Optional[int],
+           chunk_q: Optional[int]) -> torch.Tensor:
+    b, t, hq, _ = q.shape
+    if chunk_q is None or t <= chunk_q \
+            or 4 * b * hq * t * k.shape[1] <= ATTN_TILE_BYTES:
+        return _attend(q, k, v, 0, causal, window)
+    remat = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
+    tiles = []
+    for s0 in range(0, t, chunk_q):
+        args = (q[:, s0:s0 + chunk_q], k, v, s0, causal, window)
+        tiles.append(checkpoint(_attend, *args, use_reentrant=False)
+                     if remat else _attend(*args))
+    return torch.cat(tiles, dim=1)
+
+
+def _heads_split(x) -> bool:
+    return any(getattr(p, "dim", None) == 2 for p in x.placements)
+
+
+def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                      causal: bool = True, window: Optional[int] = None,
+                      chunk_q: Optional[int] = None) -> torch.Tensor:
+    """q: (B,T,Hq,Dh); k/v: (B,S,Hkv,Dh) with Hq % Hkv == 0. Query ``i`` sits
+    at position ``i`` and key ``j`` at ``j`` (the reference's
+    ``flash_attention`` with ``q_offset=0``). Queries go ``chunk_q`` rows
+    at a time where the scores would pass ``ATTN_TILE_BYTES`` (all at once
+    when ``chunk_q`` is None). Returns (B,T,Hq,Dh).
+
+    Under a mesh, q/k/v take the batch over the data axes and their heads
+    over ``model`` where the heads divide it, and each rank attends over
+    its own batch rows and heads. Where q's heads split and the kv heads
+    do not (GQA with Hkv < model), k and v are broadcast to Hq heads first,
+    the reference's full-head form: its (Hkv, G) reshape kept no head split
+    and gathered a KV tile a step."""
+    q = constrain(q, QKV_AXES)
+    k = constrain(k, QKV_AXES)
+    v = constrain(v, QKV_AXES)
+    run = functools.partial(_tiled, causal=causal, window=window,
+                            chunk_q=chunk_q)
+    if current_mesh() is None:
+        return run(q, k, v)
+    g = q.shape[2] // k.shape[2]
+    if _heads_split(q) and not _heads_split(k):
+        b, s, hkv, dh = k.shape
+        k, v = (constrain(x[:, :, :, None].expand(b, s, hkv, g, dh)
+                          .reshape(b, s, hkv * g, dh), QKV_AXES)
+                for x in (k, v))
+    return local_call(run, q.placements, q, k, v)
 
 
 def decode_attention(q: torch.Tensor, cache: KVCache, cache_len: Index, *,
@@ -189,7 +251,7 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
         k, v = cache.k[:, :end], cache.v[:, :end]
 
     out = prefill_attention(q, k, v, causal=causal and not cross,
-                            window=window)
+                            window=window, chunk_q=cfg.attn_chunk_q)
     return out.reshape(*x.shape[:2], -1) @ p["wo"], new_cache
 
 

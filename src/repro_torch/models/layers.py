@@ -14,6 +14,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import constrain
+
 Params = Dict[str, Any]
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -111,12 +113,21 @@ def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 
 def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
-    """Rows of ``table`` at ``tokens``."""
-    return table[tokens]
+    """Rows of ``table`` at ``tokens`` (``F.embedding``, whose backward
+    DTensor can place on a sharded table). Under a mesh the table is laid
+    out with d over ``model`` (replicated where d does not divide it), so
+    the rows come back with d over ``model``: a vocab-sharded table would
+    give a masked partial sum, which DTensor cannot reduce for a batch
+    sharded over another mesh dim."""
+    return F.embedding(tokens, constrain(table, [None, "model"]))
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *,
             tied: bool) -> torch.Tensor:
-    """Logits in f32: ``x @ head`` (or ``x @ table.T`` when tied)."""
-    w = table_or_head.t() if tied else table_or_head
+    """Logits in f32: ``x @ head`` (or ``x @ table.T`` when tied). Under a
+    mesh the table is gathered whole first: contracting over its sharded
+    d would leave (B, T, V) f32 logits Partial, and their all-reduce moves
+    B·T/d times the table's bytes."""
+    w = constrain(table_or_head, [None, None])
+    w = w.t() if tied else w
     return x.float() @ w.float()

@@ -12,12 +12,14 @@ chosen experts, and the aux loss is the Shazeer load-balance loss.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Tuple
 
 import torch
 import torch.nn.functional as F
 
+from ..dist.sharding import constrain, shard_map_batch
 from .config import ArchConfig
 from .layers import Params, dense_init, normal
 
@@ -57,9 +59,45 @@ def route(p: Params, x: torch.Tensor, cfg: ArchConfig):
     return probs, gate_w, gate_idx
 
 
+def _tables(gate_idx: torch.Tensor, t: int, e: int, c: int):
+    """Each batch row's dispatch tables from its expert ids (B, T, k): (sel
+    (B, E, C), the token of each expert slot, ``t`` (the pad row) where
+    empty; pos (B, T*k), each (token, choice) slot's position in its
+    expert; keep (B, T*k), pos < C)."""
+    b, k = gate_idx.shape[0], gate_idx.shape[-1]
+    ef = gate_idx.reshape(b, t * k)                         # token-major
+    oh = F.one_hot(ef, e)                                   # (B, T*k, E)
+    pos = (oh.cumsum(dim=1) * oh).sum(-1) - 1               # 0-based
+    keep = pos < c
+    token_of_slot = torch.arange(t, device=ef.device).repeat_interleave(k)
+    target = torch.where(keep, ef * c + pos, e * c)         # e*c: dropped
+    sel = torch.full((b, e * c + 1), t, dtype=torch.long, device=ef.device)
+    sel.scatter_(1, target, token_of_slot.expand(b, -1))
+    return sel[:, : e * c].reshape(b, e, c), pos, keep      # t: the pad row
+
+
+def _gather_slots(xp: torch.Tensor, sel: torch.Tensor) -> torch.Tensor:
+    """xp (B, T+1, D) rows at sel (B, E, C) -> (B, E, C, D)."""
+    rows = torch.arange(xp.shape[0], device=xp.device)
+    return xp[rows[:, None, None], sel]
+
+
+def _gather_back(out_e: torch.Tensor, slot_e: torch.Tensor,
+                 slot_c: torch.Tensor) -> torch.Tensor:
+    """out_e (B, E, C, D) at each (token, choice) slot's expert and
+    position (B, T*k) -> (B, T*k, D)."""
+    rows = torch.arange(out_e.shape[0], device=out_e.device)
+    return out_e[rows[:, None], slot_e, slot_c]
+
+
 def moe_apply(p: Params, x: torch.Tensor,
               cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (B, T, D) -> (out (B, T, D), aux load-balance loss ())."""
+    """x: (B, T, D) -> (out (B, T, D), aux load-balance loss ()).
+
+    Under a mesh the tables and both gathers run batch-locally on each
+    rank's rows (``shard_map_batch``), and the expert tensors take the
+    batch over the data axes and the experts over ``model`` (or, where E
+    does not divide it, the expert FFN width: first-divisible-wins)."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     c = moe_capacity(cfg, t)
@@ -70,28 +108,28 @@ def moe_apply(p: Params, x: torch.Tensor,
     ce = F.one_hot(gate_idx[..., 0], e).float().mean(dim=(0, 1))
     aux = e * (me * ce).sum()
 
-    # dispatch tables: each (token, choice) slot's position in its expert
-    ef = gate_idx.reshape(b, t * k)                         # token-major
-    oh = F.one_hot(ef, e)                                   # (B, T*k, E)
-    pos = (oh.cumsum(dim=1) * oh).sum(-1) - 1               # 0-based
-    keep = pos < c
-    token_of_slot = torch.arange(t, device=x.device).repeat_interleave(k)
-    target = torch.where(keep, ef * c + pos, e * c)         # e*c: dropped
-    sel = torch.full((b, e * c + 1), t, dtype=torch.long, device=x.device)
-    sel.scatter_(1, target, token_of_slot.expand(b, -1))
-    sel = sel[:, : e * c].reshape(b, e, c)                  # t: the pad row
+    sel, pos, keep = shard_map_batch(
+        functools.partial(_tables, t=t, e=e, c=c), gate_idx)
+    ef = gate_idx.reshape(b, t * k)
 
     xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    rows = torch.arange(b, device=x.device)
-    expert_in = xp[rows[:, None, None], sel]                # (B,E,C,D)
-    h = F.silu(torch.einsum("becd,edf->becf", expert_in, p["w_gate"])) * \
-        torch.einsum("becd,edf->becf", expert_in, p["w_up"])
-    out_e = torch.einsum("becf,efd->becd", h, p["w_down"])
+    expert_in = constrain(shard_map_batch(_gather_slots, xp, sel),
+                          ["batch", "model", None, None])   # (B,E,C,D)
+    # the experts' weights split as the expert tensors do (E over `model`,
+    # else the FFN width), so each rank's einsums need no other rank's part
+    w_gate, w_up = (constrain(p[name], ["model", None, "model"])
+                    for name in ("w_gate", "w_up"))
+    w_down = constrain(p["w_down"], ["model", "model", None])
+    h = F.silu(torch.einsum("becd,edf->becf", expert_in, w_gate)) * \
+        torch.einsum("becd,edf->becf", expert_in, w_up)
+    h = constrain(h, ["batch", "model", None, "model"])
+    out_e = constrain(torch.einsum("becf,efd->becd", h, w_down),
+                      ["batch", "model", None, None])
 
     # combine: gather each token's k slots back, weight, sum
     slot_e = ef.clamp(0, e - 1)
     slot_c = pos.clamp(0, c - 1)
-    per_slot = out_e[rows[:, None], slot_e, slot_c]         # (B,T*k,D)
+    per_slot = shard_map_batch(_gather_back, out_e, slot_e, slot_c)
     w = (keep * gate_w.reshape(b, t * k)).to(per_slot.dtype)
     out = (per_slot * w[..., None]).reshape(b, t, k, d).sum(dim=2)
     return out.to(x.dtype), aux

@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from ..dist.sharding import constrain, whole_dim
 from ..tree import leaves, rebuild, tree_map
 from . import ssm
 from .attention import Index, KVCache, attn_apply, attn_init, init_kv_cache
@@ -67,9 +68,9 @@ def _unstack(tree, depth: int = 1):
     nested list of trees of views. Each leaf is unbound once, so the
     backward pass stacks the layers' gradients in one op; indexing each
     layer instead would add a zero-padded copy of the whole stacked leaf
-    per layer."""
+    per layer. A layer axis split over a mesh is gathered first."""
     flat = leaves(tree)
-    cols = [v.unbind(0) for _, v in flat]
+    cols = [whole_dim(v, 0).unbind(0) for _, v in flat]
     out = [rebuild(tree, iter([c[i] for c in cols]))
            for i in range(flat[0][1].shape[0])]
     return out if depth == 1 else [_unstack(t, depth - 1) for t in out]
@@ -391,6 +392,7 @@ def _backbone(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
         positions = base[:, None].long() + steps[None, :]  # per slot
     else:
         positions = (int(base) + steps).expand(tokens.shape)
+    positions = constrain(positions, ["batch", None])   # as the tokens
     cross_kv = None
     if cfg.family == "vlm":
         if image_embeds is None:
@@ -420,17 +422,22 @@ def _backbone(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     return h, new_caches, aux
 
 
-def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, **kw
+def forward(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
+            last_logits_only: bool = False, **kw
             ) -> Tuple[torch.Tensor, Optional[Dict[str, Any]], torch.Tensor]:
     """tokens (B, T) -> (logits (B, T, V) f32, caches', aux loss); ``kw``:
     ``caches`` and ``cache_index`` (see :func:`prefill`,
-    :func:`decode_step`), ``image_embeds`` / ``encoder_frames``."""
+    :func:`decode_step`), ``image_embeds`` / ``encoder_frames``. With
+    ``last_logits_only`` the logits are (B, 1, V), the last position's."""
     h, new_caches, aux = _backbone(params, cfg, tokens, **kw)
+    if last_logits_only:
+        h = h[:, -1:]
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
     return unembed(table, h, tied=cfg.tie_embeddings), new_caches, aux
 
 
 CE_CHUNK = 1024
+CE_TILE_BYTES = 4 << 30   # the most f32 logits one chunk makes, at global shape
 
 
 def _ce_chunk(table: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor,
@@ -448,9 +455,15 @@ def _chunked_ce(h: torch.Tensor, table: torch.Tensor, tied: bool,
     """Mean cross-entropy over the labels >= 0, without materialising
     (B, T, V) logits: one (B, ``CE_CHUNK``, V) f32 tile of sequence positions
     at a time, recomputed in the backward pass (the reference's
-    ``jax.checkpoint`` chunk body). The last chunk is ragged where the
-    reference pads it with masked positions, which add nothing."""
-    c = min(CE_CHUNK, h.shape[1])
+    ``jax.checkpoint`` chunk body). A chunk has fewer positions where its
+    logits would pass ``CE_TILE_BYTES`` (a train_4k batch of 256 rows: 256
+    x 1024 x 51,865 f32 is 54 GB). The last chunk is ragged where the
+    reference pads it with masked positions, which add nothing. Under a
+    mesh the table is gathered once, not once a chunk."""
+    v = table.shape[0] if tied else table.shape[1]
+    c = max(1, min(CE_CHUNK, h.shape[1],
+                   CE_TILE_BYTES // (4 * h.shape[0] * v)))
+    table = constrain(table, [None, None])
     tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
     for s in range(0, h.shape[1], c):
         n, m = checkpoint(_ce_chunk, table, h[:, s:s + c], labels[:, s:s + c],
@@ -472,10 +485,12 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 
-def prefill(params, cfg, tokens, caches, **kw):
+def prefill(params, cfg, tokens, caches, *, last_logits_only: bool = False,
+            **kw):
     """Fill empty ``caches`` with ``tokens`` (B, T) from position 0; ``kw``:
     the frontends' ``image_embeds`` / ``encoder_frames``."""
-    return forward(params, cfg, tokens, caches=caches, cache_index=0, **kw)
+    return forward(params, cfg, tokens, caches=caches, cache_index=0,
+                   last_logits_only=last_logits_only, **kw)
 
 
 def decode_step(params, cfg, token, caches, **kw):

@@ -3,9 +3,13 @@
 
 Two variants, as in the reference:
 
-* :func:`make_train_step`: one replica. Gradients come from
+* :func:`make_train_step`: the production path. Gradients come from
   ``torch.autograd.grad`` over the param leaves; :func:`optimizer.update`
-  then writes the new params and moments in place.
+  then writes the new params and moments in place. Given a ``mesh`` (a
+  ``DeviceMesh``), the state's leaves are DTensors placed by
+  :func:`state_shardings` (:func:`jit_train_step` places them), the batch
+  is sharded over the data axes, and the gradients reduce over them
+  through DTensor's collectives (a reduce-scatter onto ZeRO-1 moments).
 * :func:`make_compressed_train_step`: the paper's technique on the
   cross-pod axis. Params carry a leading pod-replica dimension; each pod's
   gradient is BSGS-top-k compressed with error feedback by
@@ -22,9 +26,11 @@ reference's production step donates them), and new 0-d ``step`` and
 tensors. Metrics are 0-d tensors on the card: reading one waits for the
 step.
 
-The reference's ``state_shardings``, ``jit_train_step`` and ``mesh``
-arguments place the state with GSPMD; they have no counterpart here (the
-compressed step's ``group`` stands for its ``mesh``).
+Under a mesh the model runs over DTensor leaves inside
+``implicit_replication()``: every tensor the model makes for itself
+(positions, RoPE tables, masks, fills) is the same on every rank, and
+counts as replicated. The compressed step's ``group`` stands for the
+reference's ``mesh`` there.
 """
 
 from __future__ import annotations
@@ -34,6 +40,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from ..dist import sharding as shd
 from ..models import transformer
 from ..models.config import ArchConfig
 from ..tree import leaves, params_from_numpy, rebuild, to_numpy, tree_map
@@ -78,10 +85,37 @@ def _grads(loss_of, params: Any) -> Tuple[Any, Any, Any]:
     return value.detach(), aux, rebuild(params, iter(grads))
 
 
-def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig):
+def state_shardings(state: TrainState, cfg: ArchConfig, mesh: Any,
+                    profile: Optional[str] = None) -> TrainState:
+    """A :class:`TrainState` of :class:`~repro_torch.dist.sharding.
+    NamedSharding`: params by ``profile`` (``cfg.sharding_profile`` when
+    None), the moments ZeRO-1, the counts replicated."""
+    p_sh = shd.params_shardings(state.params, cfg, mesh, profile)
+    o_sh = opt.OptState(
+        m=shd.opt_state_shardings(state.opt.m, cfg, mesh, profile),
+        v=shd.opt_state_shardings(state.opt.v, cfg, mesh, profile),
+        count=shd.NamedSharding(mesh, ()))
+    return TrainState(params=p_sh, opt=o_sh, step=shd.NamedSharding(mesh, ()))
+
+
+def _constrain_batch(batch: Dict[str, torch.Tensor], mesh: Any):
+    rows = shd.NamedSharding(mesh, (shd.batch_axes(mesh),)).placements
+    return {k: shd.as_dtensor(v, mesh).redistribute(mesh, rows)
+            for k, v in batch.items()}
+
+
+def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig,
+                    mesh: Optional[Any] = None):
     """``train_step(state, batch) -> (state', metrics)``; ``batch`` holds
     ``tokens`` and ``labels`` (B, T) on the params' device. Metrics:
-    ``loss``, ``aux``, ``total``, ``lr``, ``grad_norm``."""
+    ``loss``, ``aux``, ``total``, ``lr``, ``grad_norm``.
+
+    With a ``mesh``, ``state`` holds DTensors (:func:`jit_train_step`), the
+    batch is sharded over the data axes (a plain tensor is taken as the
+    whole batch, the same on every rank), the model runs under
+    ``implicit_replication()`` with ``mesh`` ambient for its ``constrain``
+    and ``shard_map_batch`` calls, and the metrics come back as plain
+    tensors, the same on every rank."""
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         total, metrics, grads = _grads(
@@ -91,7 +125,39 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig):
         return TrainState(params=params, opt=new_opt, step=state.step + 1), \
             dict(metrics, **om, total=total)
 
-    return train_step
+    if mesh is None:
+        return train_step
+
+    def mesh_step(state: TrainState, batch: Dict[str, torch.Tensor]
+                  ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
+        from torch.distributed.tensor import DTensor
+        from torch.distributed.tensor.experimental import implicit_replication
+        with shd.use_mesh(mesh), implicit_replication():
+            state, metrics = train_step(state, _constrain_batch(batch, mesh))
+            metrics = {k: v.full_tensor() if isinstance(v, DTensor) else v
+                       for k, v in metrics.items()}
+        return state, metrics
+
+    return mesh_step
+
+
+def jit_train_step(cfg: ArchConfig, ocfg: opt.OptConfig, mesh: Any,
+                   state: TrainState, profile: Optional[str] = None):
+    """``(step, placed state)``: ``state`` laid out by
+    :func:`state_shardings` on ``mesh`` and the mesh step of
+    :func:`make_train_step` for it. Every rank passes the same whole
+    state; each keeps its shards of it, with no collective.
+
+    The name is the reference's, which jits the step with these shardings
+    and donates the state. Nothing is compiled here: the step runs eagerly
+    over DTensors, and its in-place update of the params and moments
+    stands for the donation."""
+    from torch.distributed.tensor import distribute_tensor
+    shardings = state_shardings(state, cfg, mesh, profile)
+    placed = rebuild(state, iter([
+        distribute_tensor(x, sh.mesh, sh.placements, src_data_rank=None)
+        for (_, x), (_, sh) in zip(leaves(state), leaves(shardings))]))
+    return make_train_step(cfg, ocfg, mesh), placed
 
 
 def init_compressed_state(cfg: ArchConfig, gen: Optional[torch.Generator],

@@ -390,6 +390,9 @@ def test_import_without_jax_repro_or_ml_dtypes(tmp_path):
         import repro_torch.launch.gc, repro_torch.configs.paper_store
         import repro_torch.examples.quickstart
         import repro_torch.examples.grad_compression
+        import repro_torch.dist.sharding, repro_torch.launch.mesh
+        import repro_torch.launch.specs, repro_torch.launch.dryrun
+        import repro_torch.analysis.accounting, repro_torch.analysis.op_cost
         from repro_torch.core import DeltaTensorStore
         from repro_torch.lake import LocalFSObjectStore
         store = DeltaTensorStore(LocalFSObjectStore({str(tmp_path)!r}), "t",

@@ -1,0 +1,143 @@
+"""The mesh train step on 4 gloo ranks against the plain single-process step.
+
+Four processes (``torch.multiprocessing`` spawn, a file rendezvous under
+``tmp_path``) form a (2, 2) ``("data", "model")`` mesh. Each places one
+seeded state with ``jit_train_step`` (profiles ``tp`` and ``fsdp_tp``, so
+params, ZeRO-1 moments and the batch are sharded over both axes) and runs
+one step; the whole params, gathered, and the metrics are held to one
+plain ``make_train_step`` call on the same state and batch in this
+process, in f32: the loss, grad norm and lr within 1e-5 relative, every
+param leaf and every first-moment leaf (0.1 of the gradient) within 1e-5
+of its max |x| (the sums run in another order across ranks). Three
+reduced configs: a dense arch, a MoE arch (tables and gathers batch-local
+through ``shard_map_batch``, experts over ``model``), and the dense arch
+with one kv head, which takes the full-head form (k and v broadcast to
+the query heads before the heads split).
+"""
+
+import dataclasses
+import datetime
+import os
+
+import numpy as np
+import pytest
+import torch
+import torch.multiprocessing as mp
+
+from repro_torch.models import get_arch
+from repro_torch.train import optimizer as opt
+from repro_torch.train import trainer
+from repro_torch.tree import leaves, tree_map
+
+WORLD = 4
+MESH = ((2, 2), ("data", "model"))
+CASES = {"dense": ("granite-3-8b", {}),
+         "moe": ("granite-moe-1b-a400m", {}),
+         "one_kv_head": ("granite-3-8b", {"n_kv_heads": 1})}
+PROFILES = ("tp", "fsdp_tp")
+# AdamW's first step moves a param by ~lr wherever |g| >> eps, whatever |g|:
+# at lr 1e-4 the rounding of near-zero gradients stays inside the bound,
+# while an update wrong by more than 5 % of lr would not
+OCFG = dict(lr=1e-4, warmup_steps=1, total_steps=50, grad_clip=1.0)
+RTOL = 1e-5
+JOIN_S = 300
+
+
+def cfg_of(case):
+    arch, kw = CASES[case]
+    return dataclasses.replace(get_arch(arch).reduced(), dtype="float32", **kw)
+
+
+def init(case):
+    return trainer.init_state(cfg_of(case), torch.Generator().manual_seed(5),
+                              device="cpu")
+
+
+def batch_of(case):
+    rng = np.random.default_rng(3)
+    tok = rng.integers(0, cfg_of(case).vocab_size, (4, 24)).astype(np.int32)
+    lab = np.concatenate([tok[:, 1:], np.full((4, 1), -1, np.int32)], 1)
+    return {"tokens": torch.as_tensor(tok), "labels": torch.as_tensor(lab)}
+
+
+def rank_main(rank, init_file, out_dir):
+    """One rank: every case under both profiles, one mesh step each."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import make_mesh
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            world_size=WORLD, rank=rank,
+                            timeout=datetime.timedelta(seconds=JOIN_S))
+    try:
+        mesh = make_mesh(*MESH, device_type="cpu")
+        out = {}
+        for case in CASES:
+            for profile in PROFILES:
+                cfg = cfg_of(case)
+                step, state = trainer.jit_train_step(
+                    cfg, opt.OptConfig(**OCFG), mesh, init(case), profile)
+                held = {k: sum(x.to_local().numel() for _, x in leaves(t))
+                        for k, t in (("params", state.params),
+                                     ("m", state.opt.m))}
+                state, m = step(state, batch_of(case))
+                out[case, profile] = {
+                    "params": tree_map(lambda t: t.full_tensor(), state.params),
+                    "m": tree_map(lambda t: t.full_tensor(), state.opt.m),
+                    "metrics": m, "held": held}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+@pytest.fixture(scope="module")
+def ranks(tmp_path_factory):
+    """Each rank's results of one 4-rank gloo run."""
+    d = tmp_path_factory.mktemp("mesh_train")
+    ctx = mp.get_context("spawn")
+    procs = [ctx.Process(target=rank_main,
+                         args=(r, str(d / "rendezvous"), str(d)))
+             for r in range(WORLD)]
+    for p in procs:
+        p.start()
+    try:
+        for p in procs:
+            p.join(timeout=JOIN_S)
+    finally:
+        for p in procs:
+            if p.is_alive():
+                p.kill()
+                p.join(timeout=10)
+    assert [p.exitcode for p in procs] == [0] * WORLD
+    return [torch.load(d / f"rank{r}.pt", weights_only=False)
+            for r in range(WORLD)]
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_mesh_step_equals_the_plain_step(ranks, case, profile):
+    cfg = cfg_of(case)
+    state = init(case)
+    whole = sum(x.numel() for _, x in leaves(state.params))
+    want, wm = trainer.make_train_step(cfg, opt.OptConfig(**OCFG))(
+        state, batch_of(case))
+    for rank, got in enumerate(ranks):
+        r = got[case, profile]
+        # a rank holds part of the params (over `model`; fsdp_tp also over
+        # `data`) and a quarter or so of the ZeRO-1 moments
+        assert r["held"]["params"] < whole, (rank, r["held"])
+        assert r["held"]["m"] < whole / 2, (rank, r["held"])
+        loss, want_loss = float(r["metrics"]["loss"]), float(wm["loss"])
+        assert abs(loss - want_loss) <= RTOL * abs(want_loss), (rank, loss,
+                                                                 want_loss)
+        for k in ("grad_norm", "lr", "total"):
+            assert abs(float(r["metrics"][k]) - float(wm[k])) <= \
+                RTOL * abs(float(wm[k])), (rank, k)
+        # the first moments are 0.1 g: the gradients leaf by leaf
+        for got_tree, want_tree in ((r["params"], want.params),
+                                    (r["m"], want.opt.m)):
+            g, w = leaves(got_tree), leaves(want_tree)
+            assert [n for n, _ in g] == [n for n, _ in w]
+            bad = [(n, float((a - b).abs().max()), float(b.abs().max()))
+                   for (n, a), (_, b) in zip(g, w)
+                   if float((a - b).abs().max()) > RTOL * float(b.abs().max())]
+            assert not bad, (rank, bad)
