@@ -155,7 +155,21 @@ Phases, each of which exits non-zero on failure:
    (4, 4) mesh and granite-3-8b x train_4k on the production (16, 16) mesh,
    under a fake process group, each on the card (its own shards, random
    values: peak memory, a warm step's time, op_cost's counts) and on meta
-   (counts only); the card's FLOPs must equal meta's;
+   (counts only); the card's FLOPs must equal meta's; each cell prints its
+   collective bytes by kind and the ten largest by the op that caused
+   them (granite's train cell beside the 552.46 / 116.42 / 22.36 GB of
+   all-reduce / all-gather / reduce-scatter it moved while the mesh step
+   still clipped Partial gradients); (d) the same for three
+   serving cells on the (16, 16) mesh: granite-3-8b x decode_32k (8 kv
+   heads on 16: the cache splits seq, the flash-decode combine),
+   mixtral-8x22b x long_500k (``fsdp_tp``, a ring cache of its 4096
+   window, MoE at T = 1) and zamba2-2.7b x long_500k (its shared
+   attention's 524,288-position caches split on heads, Mamba2 states);
+   the largest collective of each step must stay below one layer's k
+   shard on the rank; (e) on phase (a)'s NCCL group and (1, 1) mesh, a
+   prefill of 8x64 corpus tokens and 8 greedy decode steps of phase 7's
+   granite-3-8b state, params and caches placed by the rules, must equal
+   the plain prefill and ``decode_step`` byte for byte, logits and caches;
 9. print the card's name and power limit, one JSON line of per-kernel
    numbers (launches per path: read, stream, compress, serve, one serve
    path per family of 6b, train, train_zamba2, train_whisper, mesh), and as
@@ -2788,9 +2802,20 @@ def deep_train_path(torch, np, workdir):
 # on the (4, 4) mesh the reference's smoke test compiles, granite-3-8b on
 # the production (16, 16) mesh
 MESH_CELLS = (("whisper-tiny", "train_4k", "4x4"),
-              ("granite-3-8b", "train_4k", "single"))
+              ("granite-3-8b", "train_4k", "single"),
+              # 8d: the serving cells, decode on a cache split on seq (the
+              # flash-decode combine), MoE at T = 1 over a ring cache, and
+              # the hybrid's heads-split caches beside its Mamba2 states
+              ("granite-3-8b", "decode_32k", "single"),
+              ("mixtral-8x22b", "long_500k", "single"),
+              ("zamba2-2.7b", "long_500k", "single"))
 FLOPS_RATIO = (1.0, 2.0)   # 8c: counted FLOPs over model_flops core + attention
 DRYRUN_S = 600
+# the granite train_4k cell's collectives on the H100 (GB) while the mesh
+# step clipped Partial gradients, before they were reduced onto their moments
+UNREDUCED_COLLECTIVES_GB = {"all_reduce": 552.46, "all_gather": 116.42,
+                       "reduce_scatter": 22.36}
+DECODE_B, DECODE_PROMPT, DECODE_STEPS = 8, 64, 8   # 8e
 
 
 def free_port() -> int:
@@ -2841,17 +2866,108 @@ def dryrun_cells(workdir):
     return out
 
 
+def kv_shard_bytes(arch, shape, mesh_name):
+    """One layer's k shard on a rank of a decode cell: the cell's cache,
+    laid out by the serve-state rules on the mesh's dim names and sizes."""
+    import math as m
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import dryrun, specs
+    from repro_torch.models import get_arch, transformer
+    from repro_torch.tree import leaves
+    cfg = get_arch(arch)
+    info = specs.SHAPES[shape]
+    b = info["global_batch"]
+    ring = cfg.window is not None and shape == "long_500k"
+    caches = transformer.init_caches(cfg, b, cfg.window if ring else
+                                     info["seq_len"], device="meta")
+    mesh = shd.AbstractMesh(*dryrun.mesh_of(mesh_name))
+    sizes = shd.mesh_sizes(mesh)
+    sh = dict(leaves(specs._cache_shardings(caches, cfg, mesh, b)))
+    name, k = next((n, x) for n, x in leaves(caches) if n.endswith("/k"))
+    local = [n // m.prod(sizes[a] for a in ((e,) if isinstance(e, str) else
+                                            e or ()))
+             for n, e in zip(k.shape, sh[name].spec)]
+    return m.prod(local[k.ndim - 4:]) * k.element_size()
+
+
+def decode_on_mesh(torch, np, cfg, mesh, dev):
+    """8e: prefill DECODE_B x DECODE_PROMPT corpus tokens and take
+    DECODE_STEPS greedy decode steps, plainly and on ``mesh`` (params and
+    caches placed by the rules, the steps under the mesh), from the same
+    params: every logit and cache byte must agree. Returns the steps' ms
+    on the mesh."""
+    from torch.distributed.tensor import DTensor, distribute_tensor
+    from torch.distributed.tensor.experimental import implicit_replication
+    from repro_torch.data.synthetic import token_stream
+    from repro_torch.dist import sharding as shd
+    from repro_torch.launch import specs
+    from repro_torch.models import transformer as tt
+    from repro_torch.tree import leaves, rebuild
+
+    def place(tree, shardings):
+        return rebuild(tree, iter([
+            distribute_tensor(x, sh.mesh, sh.placements, src_data_rank=None)
+            for (_, x), (_, sh) in zip(leaves(tree), leaves(shardings))]))
+
+    def local(x):
+        return x.to_local() if isinstance(x, DTensor) else x
+
+    max_len = DECODE_PROMPT + DECODE_STEPS
+    tok = torch.as_tensor(token_stream(DECODE_B, DECODE_PROMPT,
+                                       cfg.vocab_size, seed=1)).to(dev)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    params = tt.init_params(cfg, gen, device=dev)
+    with torch.no_grad():
+        caches = tt.init_caches(cfg, DECODE_B, max_len, device=dev)
+        logits, caches, _ = tt.prefill(params, cfg, tok, caches)
+        want, nxt = [logits], [logits[:, -1:].argmax(-1)]
+        for _ in range(DECODE_STEPS):
+            logits, caches, _ = tt.decode_step(params, cfg, nxt[-1], caches)
+            want.append(logits)
+            nxt.append(logits.argmax(-1))
+        p = place(params, shd.params_shardings(params, cfg, mesh))
+        del params
+        c = tt.init_caches(cfg, DECODE_B, max_len, device=dev)
+        c = place(c, specs._cache_shardings(c, cfg, mesh, DECODE_B))
+        with shd.use_mesh(mesh), implicit_replication():
+            logits, c, _ = tt.prefill(p, cfg, tok, c)
+            got = [logits]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for i in range(DECODE_STEPS):
+                logits, c, _ = tt.decode_step(p, cfg, nxt[i], c)
+                got.append(logits)
+            torch.cuda.synchronize()
+            step_ms = (time.perf_counter() - t0) * 1e3 / DECODE_STEPS
+    bad = [i for i, (a, b) in enumerate(zip(got, want))
+           if not same_bytes(local(a), b)]
+    bad_c = [n for (n, a), (_, b) in zip(leaves(c), leaves(caches))
+             if not same_bytes(local(a), b)]
+    log(f"[mesh decode] {cfg.name} L = {cfg.n_layers} on a (1, 1) mesh, a "
+        f"1-rank NCCL group: prefill {DECODE_B}x{DECODE_PROMPT}, "
+        f"{DECODE_STEPS} greedy steps; logits differing from the plain "
+        f"decode's at calls {bad} of {len(want)}, cache leaves differing "
+        f"{bad_c} of {len(leaves(caches))}; a step on the mesh "
+        f"{step_ms!r} ms")
+    if bad or bad_c:
+        fail(f"the mesh decode differs from the plain decode: logits at "
+             f"calls {bad}, cache leaves {bad_c}")
+    return step_ms
+
+
 def mesh_path(torch, np, layers, workdir):
     """8: the mesh tooling. (a) ``jit_train_step`` on a real 1-rank NCCL
     group and a (1, 1) mesh against ``make_train_step`` from the same
     granite-3-8b L-layer state and batch; (c) op_cost over that plain step
-    against ``accounting.model_flops``; (b) one rank of each MESH_CELLS
+    against ``accounting.model_flops``; (e) a prefill and greedy decode on
+    that mesh against the plain ones; (b, d) one rank of each MESH_CELLS
     cell on the card under a fake process group, against the same cell
-    counted on meta. Returns the launches of (a) and (c)."""
+    counted on meta. Returns the launches of (a), (c) and (e)."""
     import torch.distributed as dist
     from repro_torch import kernels as kern
     from repro_torch.analysis import accounting, op_cost
     from repro_torch.data.synthetic import token_stream
+    from repro_torch.launch import specs
     from repro_torch.launch.mesh import make_mesh
     from repro_torch.train import optimizer as opt
     from repro_torch.train import trainer
@@ -2935,6 +3051,10 @@ def mesh_path(torch, np, layers, workdir):
             fail(f"counted FLOPs over model_flops {ratio!r} outside "
                  f"{FLOPS_RATIO}")
         del plain
+        torch.cuda.empty_cache()
+        # 8e: serving on the same mesh
+        decode_on_mesh(torch, np, cfg, mesh, dev)
+        torch.cuda.empty_cache()
     finally:
         dist.destroy_process_group()
     counts = kern.launch_counts()
@@ -2962,6 +3082,29 @@ def mesh_path(torch, np, layers, workdir):
         if c["flops"] != m["flops"]:
             fail(f"dry run {name}: the card counted {c['flops']!r} FLOPs, "
                  f"meta {m['flops']!r}")
+        coll = cu["collectives"]
+        big = coll["largest"]
+        log(f"[dryrun {name}] collectives on the card by kind (GB): "
+            f"{json.dumps({k: v / 1e9 for k, v in coll['bytes_by_kind'].items()})}"
+            f"; the largest single one {big['bytes']!r} B ({big['kind']}, "
+            f"{big['op']})")
+        by_op = sorted(((v["bytes"], kind, op, v["count"])
+                        for kind, ops in coll["by_op"].items()
+                        for op, v in ops.items()), reverse=True)
+        for b, kind, op, n in by_op[:10]:
+            log(f"[dryrun {name}]   {kind} {op}: {b / 1e9!r} GB in {n}")
+        if cell == ("granite-3-8b", "train_4k", "single"):
+            log(f"[dryrun {name}] before the gradients were reduced onto "
+                f"their moments (GB): "
+                f"{json.dumps(UNREDUCED_COLLECTIVES_GB)}")
+        if specs.SHAPES[cell[1]]["kind"] == "decode":
+            bound = kv_shard_bytes(*cell)
+            log(f"[dryrun {name}] one layer's k shard on the rank {bound} B; "
+                f"the largest collective {big['bytes']!r} B")
+            if not big["bytes"] < bound:
+                fail(f"dry run {name}: a collective of {big['bytes']!r} B "
+                     f"({big['op']}) is as large as a layer's KV shard, "
+                     f"{bound} B")
     log(f"[mesh] phase 8 {time.perf_counter() - t_phase!r} s; launches "
         f"{json.dumps(counts)}")
     return counts

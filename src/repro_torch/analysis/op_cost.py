@@ -12,7 +12,13 @@ this process executes on plain tensors, forward and backward:
 * bytes: the operands plus the results of every op that is not a view or
   an allocation: an upper bound, since nothing is fused;
 * collective bytes (the output of each collective) and counts, by kind:
-  ``all_gather``, ``all_reduce``, ``reduce_scatter``, ``all_to_all``.
+  ``all_gather``, ``all_reduce``, ``reduce_scatter``, ``all_to_all``; and
+  by kind, the same again by what caused each one, ``"<op> @ <site>"``:
+  the aten op whose DTensor dispatch redistributed its inputs (or
+  ``redistribute`` for an explicit one, ``collective`` for one the code
+  calls itself) and the innermost function of this package on the stack
+  (``backward`` inside autograd's engine). This is the counterpart of
+  reading a collective's operand in the reference's HLO text.
 
 Where the arguments are DTensors, the mode lets DTensor run the op; DTensor
 then runs its local ops and collectives on each rank's shards, and the
@@ -27,8 +33,10 @@ iteration is counted as it runs and no correction is needed.
 
 from __future__ import annotations
 
+import os
+import sys
 from dataclasses import dataclass, field
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, List, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -48,6 +56,9 @@ class Cost:
     bytes: float = 0.0
     coll_bytes: Dict[str, float] = field(default_factory=dict)
     coll_count: Dict[str, float] = field(default_factory=dict)
+    # kind -> "<op> @ <site>" -> [bytes, count]
+    coll_by_op: Dict[str, Dict[str, List[float]]] = field(default_factory=dict)
+    largest: Tuple[float, str, str] = (0.0, "", "")   # bytes, kind, op
 
     @property
     def total_coll_bytes(self) -> float:
@@ -66,6 +77,40 @@ def _nbytes(tree: Any) -> int:
                if isinstance(t, torch.Tensor))
 
 
+def by_op(cost: Cost) -> Dict[str, Dict[str, Dict[str, float]]]:
+    """``cost``'s collectives by kind and cause, largest bytes first, as
+    JSON-ready values."""
+    return {kind: {op: {"bytes": b, "count": n} for op, (b, n) in
+                   sorted(ops.items(), key=lambda kv: -kv[1][0])}
+            for kind, ops in cost.coll_by_op.items()}
+
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__))) + os.sep
+# the counter itself and the layout helpers: a site is their caller
+_SKIP = (os.path.abspath(__file__),
+         os.path.join(_PKG, "dist", "sharding.py"))
+
+
+def _site() -> Tuple[bool, str]:
+    """(whether an explicit ``DTensor.redistribute`` / ``full_tensor`` is
+    on the stack, the innermost function of this package on it outside
+    the layout helpers, as ``file.py:function``, or ``backward`` inside
+    autograd's engine)."""
+    f = sys._getframe(2)
+    explicit, site = False, None
+    while f is not None and site is None:
+        path, name = f.f_code.co_filename, f.f_code.co_name
+        if path.endswith(os.path.join("distributed", "tensor", "_api.py")) \
+                and name in ("redistribute", "full_tensor"):
+            explicit = True
+        elif path.startswith(_PKG) and path not in _SKIP:
+            site = f"{os.path.basename(path)}:{name}"
+        elif name == "_engine_run_backward":
+            site = "backward"
+        f = f.f_back
+    return explicit, site or "backward"
+
+
 def _kind(name: str):
     # functional names (all_gather_into_tensor) and c10d's (allgather_,
     # alltoall_base_, reduce_scatter_tensor_coalesced)
@@ -82,16 +127,21 @@ class _Counter(TorchDispatchMode):
         self.cost = cost
         self._dtensor, self._fake = DTensor, FakeTensor
         self._flops = flop_registry
+        self._trigger = None    # the DTensor op being dispatched
 
     def __torch_dispatch__(self, func, types, args=(), kwargs=None):
         kwargs = kwargs or {}
         if any(issubclass(t, self._dtensor) for t in types):
-            return NotImplemented   # DTensor's local ops come back here
+            # DTensor's collectives for this op, then its local op, come back
+            self._trigger = func._overloadpacket
+            return NotImplemented
         out = func(*args, **kwargs)
         if any(issubclass(t, self._fake) for t in types):
             return out              # DTensor's shape inference
         packet = func._overloadpacket
         name = packet.__name__
+        if packet is self._trigger:
+            self._trigger = None
         if name in _FREE or func.is_view:
             return out
         moved = _nbytes((args, kwargs)) + _nbytes(out)
@@ -103,8 +153,18 @@ class _Counter(TorchDispatchMode):
             else None
         if kind is not None:
             c = self.cost
-            c.coll_bytes[kind] = c.coll_bytes.get(kind, 0.0) + _nbytes(out)
+            n = _nbytes(out)
+            c.coll_bytes[kind] = c.coll_bytes.get(kind, 0.0) + n
             c.coll_count[kind] = c.coll_count.get(kind, 0.0) + 1
+            explicit, site = _site()
+            op = ("redistribute" if explicit else
+                  self._trigger.__name__ if self._trigger else "collective")
+            key = f"{op} @ {site}"
+            entry = c.coll_by_op.setdefault(kind, {}).setdefault(key, [0.0, 0])
+            entry[0] += n
+            entry[1] += 1
+            if n > c.largest[0]:
+                c.largest = (float(n), kind, key)
         return out
 
 

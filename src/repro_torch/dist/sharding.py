@@ -22,7 +22,10 @@ One place decides how every tensor lays out over the mesh:
 * ``shard_map_batch(fn, *args)``: run ``fn`` batch-locally on each rank's
   rows (for the MoE dispatch's batched gathers and tables). Outside
   :func:`use_mesh` it is ``fn(*args)``. ``local_call`` is the same for any
-  one layout shared by the args (attention's batch and heads).
+  one layout shared by the args (attention's batch and heads);
+  ``shard_call`` runs ``fn`` on each arg's shard as it lies, with the
+  rank's offset along every split dim (the KV cache's decode writes and
+  the flash-decode combine over a cache split on seq).
 
 A :class:`NamedSharding` keeps the reference's per-dim spec (a tuple of
 ``None``, an axis name or a tuple of axis names, as ``PartitionSpec``
@@ -180,6 +183,38 @@ def as_dtensor(x: torch.Tensor, mesh: Any):
                               run_check=False)
 
 
+def is_dtensor(x: Any) -> bool:
+    """Whether ``x`` is a DTensor."""
+    from torch.distributed.tensor import DTensor
+    return isinstance(x, DTensor)
+
+
+def meet(x: torch.Tensor, like: Any, dims: dict) -> torch.Tensor:
+    """``x`` laid out to meet DTensor ``like`` where it lies: a mesh dim
+    that splits dim ``j`` of ``like`` splits dim ``dims[j]`` of ``x`` (the
+    dims they share), and ``x`` is whole on every other mesh dim. An op of
+    the two then needs no byte of ``like`` from another rank (an expert's
+    weights, a recurrent state). ``x`` itself when ``like`` is not a
+    DTensor."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+    if not isinstance(like, DTensor):
+        return x
+    mesh = like.device_mesh
+    placements = tuple(Shard(dims[p.dim]) if p.is_shard() and p.dim in dims
+                       else Replicate() for p in like.placements)
+    return as_dtensor(x, mesh).redistribute(mesh, placements)
+
+
+def laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
+    """``x`` in ``like``'s placements where both are DTensors that differ
+    (a gradient and its ZeRO-1 moment, a step and its param), else ``x``
+    itself."""
+    placements = getattr(like, "placements", None)
+    if placements is None or x.placements == placements:
+        return x
+    return x.redistribute(like.device_mesh, placements)
+
+
 def whole_dim(x: torch.Tensor, dim: int) -> torch.Tensor:
     """``x`` with dim ``dim`` whole on every rank, its other placements
     kept (a stacked layer axis before it is unbound); ``x`` itself when it
@@ -224,19 +259,78 @@ def local_call(fn, placements: Sequence[Any], *args):
         for _, o in leaves(out)]))
 
 
-def shard_map_batch(fn, *args):
+def shard_spans(x: torch.Tensor) -> dict:
+    """``{tensor dim: (offset, extent)}`` of this rank's shard of DTensor
+    ``x`` along each split dim (several mesh dims on one tensor dim split
+    it major first); ``{}`` for a plain tensor. Splits must be even."""
+    from torch.distributed.tensor import DTensor
+    if not isinstance(x, DTensor):
+        return {}
+    mesh = x.device_mesh
+    coord = mesh.get_coordinate()
+    parts: dict = {}
+    for mdim, p in enumerate(x.placements):
+        if p.is_shard():
+            n, i = parts.get(p.dim, (1, 0))
+            parts[p.dim] = (n * mesh.size(mdim), i * mesh.size(mdim)
+                            + coord[mdim])
+    spans = {}
+    for dim, (n, i) in parts.items():
+        if x.shape[dim] % n:
+            raise ValueError(f"dim {dim} of {tuple(x.shape)} does not split "
+                             f"evenly {n} ways")
+        extent = x.shape[dim] // n
+        spans[dim] = (i * extent, extent)
+    return spans
+
+
+def shard_call(fn, out_placements: Optional[Sequence[Any]], *args):
+    """Run ``fn(spans, *shards)`` on each DTensor argument's local shard as
+    it lies, with no redistribution (a KV cache stays where it is):
+    ``spans[i]`` is :func:`shard_spans` of argument ``i``. The outputs (a
+    tensor, a tree of them, or None for a call that writes its arguments in
+    place) come back as DTensors in ``out_placements`` on the arguments'
+    mesh. ``fn`` sees plain tensors; where its outputs need other ranks'
+    shards it runs the collectives itself (the callers lay small arguments
+    out first, with ``redistribute``)."""
+    from torch.distributed.tensor import DTensor
+    mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    spans = [shard_spans(a) for a in args]
+    out = fn(spans, *[a.to_local() if isinstance(a, DTensor) else a
+                      for a in args])
+    if out is None:
+        return None
+    return rebuild(out, iter([
+        DTensor.from_local(o, mesh, out_placements, run_check=False)
+        for _, o in leaves(out)]))
+
+
+def shard_map_batch(fn, *args, whole: Sequence[Any] = ()):
     """Run ``fn`` with each arg's leading (batch) dim split over the data
     axes; outputs are reassembled on the same layout. Batch-local compute
     only: ``fn`` must not reduce across the batch dim. Each rank calls
-    ``fn`` on plain tensors, its rows of every arg."""
+    ``fn`` on plain tensors, its rows of every arg (all of them where the
+    rows do not split over the data axes), then the tensors of ``whole``
+    whole (a weight the rows share: its gradient sums over the ranks'
+    rows)."""
     mesh = current_mesh()
     if mesh is None:
-        return fn(*args)
+        return fn(*args, *whole)
     axes = batch_axes(mesh)
     dsize = _axes_size(mesh, axes)
-    if dsize <= 1 or any(a.shape[0] % dsize != 0 for a in args):
-        return fn(*args)
-    return local_call(fn, NamedSharding(mesh, (axes,)).placements, *args)
+    if dsize <= 1:
+        return fn(*args, *whole)
+    from torch.distributed.tensor import Partial, Replicate
+    split = all(a.shape[0] % dsize == 0 for a in args)
+    # rows that do not split (a decode batch of one) are replicated, as
+    # the batch rules lay them out, and each rank runs all of them
+    rows = NamedSharding(mesh, (axes,) if split else ()).placements
+    grads = tuple(Partial() if split and name in axes else Replicate()
+                  for name in mesh.mesh_dim_names)
+    shared = [as_dtensor(w, mesh).redistribute(
+        mesh, (Replicate(),) * mesh.ndim).to_local(grad_placements=grads)
+        for w in whole]
+    return local_call(lambda *a: fn(*a, *shared), rows, *args)
 
 
 # ---------------------------------------------------------------------------

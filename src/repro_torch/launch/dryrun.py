@@ -17,7 +17,9 @@ Each record (JSON, under ``experiments/dryrun_torch/``) has the
 reference's keys where they carry over: ``memory`` (the rank's argument
 bytes; on cuda also its peak allocated bytes and the live bytes after the
 step), ``corrected`` (op_cost's FLOPs, bytes, collective bytes and counts
-by kind), ``collectives`` (bytes and counts by kind, total bytes),
+by kind), ``collectives`` (bytes and counts by kind, total bytes; under
+``by_op`` the bytes and counts of each kind by the op and site that caused
+them, and under ``largest`` the largest single collective),
 ``analytic`` (:mod:`repro_torch.analysis.accounting`), ``n_devices``,
 ``mesh_shape``, ``profile``. The reference's ``lower_s`` and ``compile_s``
 become ``step_s`` (a warm step's seconds; null on meta); its ``cost``
@@ -153,13 +155,17 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str, *,
             cfg, info["kind"], info["global_batch"],
             1 if info["kind"] == "decode" else info["seq_len"],
             cache_len=info["seq_len"])
+        b, kind, op = corrected.largest
         coll = {"bytes_by_kind": dict(corrected.coll_bytes),
                 "count_by_kind": dict(corrected.coll_count),
-                "total_bytes": corrected.total_coll_bytes}
+                "total_bytes": corrected.total_coll_bytes,
+                "by_op": op_cost.by_op(corrected),
+                "largest": {"bytes": b, "kind": kind, "op": op}}
         print(f"[{name}] memory: args={arg_bytes} "
               f"peak={mem.get('peak_allocated_bytes')} step_s={step_s}")
         print(f"[{name}] collectives: {coll['count_by_kind']} "
-              f"total={coll['total_bytes'] / 1e9:.3f} GB")
+              f"total={coll['total_bytes'] / 1e9:.3f} GB, largest "
+              f"{b / 1e6:.3f} MB ({kind}, {op})")
         print(f"[{name}] corrected: flops={corrected.flops:.6e} "
               f"bytes={corrected.bytes:.6e} "
               f"coll={corrected.total_coll_bytes:.6e}")

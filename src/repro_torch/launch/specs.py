@@ -100,14 +100,24 @@ def _batch_shardings(batch: Dict[str, Any], mesh: Any):
     return {k: spec(v) for k, v in batch.items()}
 
 
+# a serve-state leaf's batch dim, counted from its end: stacked leaves
+# carry their layer axes in front of it
+BATCH_FROM_END = {"k": 4, "v": 4, "ssd": 4, "s": 4, "conv": 3, "c": 2,
+                  "n": 2, "h": 2, "enc_out": 3}
+
+
 def _cache_shardings(caches: Any, cfg: ArchConfig, mesh: Any, batch: int):
     """Name-aware serve-state partitioner.
 
-    Batch dim: the unique dim equal to the serve batch (sharded over the
-    data axes when divisible). Model axis preference per leaf kind: KV
-    caches try heads, then seq (seq-parallel KV is the fallback for tiny-kv
-    archs like glm4), then head_dim; SSM matrix states try ssm-heads, then
-    P, then N; conv / sLSTM / encoder states shard their channels.
+    Batch dim: the dim past the leaf's stacked layer axes (sharded over the
+    data axes when divisible). The reference takes the first dim equal to
+    the serve batch, which for phi3-mini-3.8b x prefill_32k (32 layers, 32
+    rows) is the layer axis: a layer's view of a cache split there has no
+    shard on most ranks to be written in place. Model axis preference per
+    leaf kind: KV caches try heads, then seq (seq-parallel KV is the
+    fallback for tiny-kv archs like glm4), then head_dim; SSM matrix states
+    try ssm-heads, then P, then N; conv / sLSTM / encoder states shard
+    their channels.
     """
     axes = shd.batch_axes(mesh)
     sizes = shd.mesh_sizes(mesh)
@@ -119,11 +129,11 @@ def _cache_shardings(caches: Any, cfg: ArchConfig, mesh: Any, batch: int):
         if nd == 0:
             return shd.NamedSharding(mesh, ())
         spec: list = [None] * nd
-        # batch dim = first dim whose extent equals the serve batch
-        bdim = next((d for d in range(nd) if leaf.shape[d] == batch), None)
-        if bdim is not None and batch % dsize == 0 and "index" not in name:
-            spec[bdim] = axes
         leaf_name = name.rsplit("/", 1)[-1]
+        bdim = nd - BATCH_FROM_END.get(leaf_name, nd)
+        if leaf.shape[bdim] == batch and batch % dsize == 0 \
+                and "index" not in name:
+            spec[bdim] = axes
         if leaf_name in ("k", "v") and nd >= 4:
             prefs = [nd - 2, nd - 3, nd - 1]      # heads, seq, head_dim
         elif leaf_name in ("ssd", "s") and nd >= 4:

@@ -27,7 +27,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import constrain, current_mesh, local_call
+from ..dist.sharding import (as_dtensor, constrain, current_mesh, is_dtensor,
+                              local_call, mesh_sizes, shard_call)
 from .config import ArchConfig
 from .layers import Params, dense_init, rope
 
@@ -58,14 +59,29 @@ def attn_init(gen, cfg: ArchConfig, dtype, device,
     }
 
 
+def _heads(y: torch.Tensor, h: int, hd: int) -> torch.Tensor:
+    """(B, T, h·hd) -> (B, T, h, hd). Under a mesh a feature dim split
+    into parts that do not hold whole heads (a decode step's projection
+    against weights split on their output over the data axes, 8 kv heads
+    16 ways) is first laid out as attention takes it: the batch over the
+    data axes, the heads over ``model`` where they divide it."""
+    if is_dtensor(y):
+        mesh = y.device_mesh
+        parts = math.prod(mesh.size(d) for d, p in enumerate(y.placements)
+                          if p.is_shard(2))
+        if h % parts:
+            model = "model" if h % mesh_sizes(mesh).get("model", 1) == 0 \
+                else None
+            y = constrain(y, ["batch", None, model])
+    return y.reshape(*y.shape[:2], h, hd)
+
+
 def _project_qkv(p: Params, x: torch.Tensor, kv_x: torch.Tensor,
                  cfg: ArchConfig):
-    b, t, _ = x.shape
-    s = kv_x.shape[1]
     hd = cfg.hd
-    q = (x @ p["wq"]).reshape(b, t, cfg.n_heads, hd)
-    k = (kv_x @ p["wk"]).reshape(b, s, cfg.n_kv_heads, hd)
-    v = (kv_x @ p["wv"]).reshape(b, s, cfg.n_kv_heads, hd)
+    q = _heads(x @ p["wq"], cfg.n_heads, hd)
+    k = _heads(kv_x @ p["wk"], cfg.n_kv_heads, hd)
+    v = _heads(kv_x @ p["wv"], cfg.n_kv_heads, hd)
     return q, k, v
 
 
@@ -151,6 +167,22 @@ def prefill_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     return local_call(run, q.placements, q, k, v)
 
 
+def _keep(pos: torch.Tensor, cache_len: Index, s: int,
+          window: Optional[int], ring: bool) -> torch.Tensor:
+    """Which of the keys at global positions ``pos`` (1, n) a query
+    attends to, per row (B or 1, n); ``s`` is the cache's width."""
+    clen = torch.as_tensor(cache_len, device=pos.device).reshape(-1, 1)
+    if ring:
+        # ring buffer of width s (== window): slot i holds absolute position
+        # p - ((p - i) mod s); early steps (abs < 0) are empty
+        p_cur = clen - 1
+        return (p_cur - torch.remainder(p_cur - pos, s)) >= 0
+    keep = pos < clen
+    if window is not None:
+        keep &= pos >= clen - window
+    return keep
+
+
 def decode_attention(q: torch.Tensor, cache: KVCache, cache_len: Index, *,
                      window: Optional[int] = None,
                      ring: bool = False) -> torch.Tensor:
@@ -158,37 +190,121 @@ def decode_attention(q: torch.Tensor, cache: KVCache, cache_len: Index, *,
 
     q: (B, 1, Hq, Dh); cache tensors (B, S, Hkv, Dh); ``cache_len`` = the
     number of valid entries, an int or a per-slot (B,) tensor (the new
-    token's k/v already written at ``cache_len - 1``).
+    token's k/v already written at ``cache_len - 1``). A cache of DTensors
+    is read where it lies (:func:`_decode_shards`).
     """
+    if is_dtensor(cache.k):
+        return _decode_shards(q, cache, cache_len, window, ring)
+    return _decode_whole(q, cache.k, cache.v, cache_len, window, ring)
+
+
+def _decode_whole(q, k, v, cache_len: Index, window: Optional[int],
+                  ring: bool) -> torch.Tensor:
+    """:func:`decode_attention` over every position of a cache."""
     b, _, hq, dh = q.shape
-    s, hkv = cache.k.shape[1], cache.k.shape[2]
+    s, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, hkv, g, dh)
-    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(), cache.k.float())
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float())
     sc = sc * (1.0 / math.sqrt(dh))
     pos = torch.arange(s, device=q.device)[None, :]
-    clen = torch.as_tensor(cache_len, device=q.device).reshape(-1, 1)
-    if ring:
-        # ring buffer of width s (== window): slot i holds absolute position
-        # p - ((p - i) mod s); early steps (abs < 0) are empty
-        p_cur = clen - 1
-        keep = (p_cur - torch.remainder(p_cur - pos, s)) >= 0
-    else:
-        keep = pos < clen
-        if window is not None:
-            keep &= pos >= clen - window
-    keep = keep.expand(b, s)
+    keep = _keep(pos, cache_len, s, window, ring).expand(b, s)
     sc = torch.where(keep[:, None, None, :], sc, NEG_INF)
     p = torch.softmax(sc, dim=-1)
-    out = torch.einsum("bhgk,bkhd->bhgd", p.to(cache.v.dtype).float(),
-                       cache.v.float())
+    out = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
     return out.reshape(b, 1, hq, dh).to(q.dtype)
+
+
+def _rows_like(x: Index, cache_x) -> Index:
+    """``x`` (an int, a 0-d or a per-slot (B,) tensor) laid out as the
+    cache's batch rows: split where the cache splits its batch dim, whole
+    on every other mesh dim."""
+    if not isinstance(x, torch.Tensor):
+        return x
+    from torch.distributed.tensor import Replicate
+    mesh = cache_x.device_mesh
+    per_row = x.ndim == 1
+    placements = tuple(p if per_row and p.is_shard(0) else Replicate()
+                       for p in cache_x.placements)
+    return as_dtensor(x, mesh).redistribute(mesh, placements)
+
+
+def _partial_softmax(q, k, v, keep):
+    """One shard of keys' part of the softmax: (row max, sum of exp, the
+    exp-weighted sum of v) of q (B,1,Hq,Dh) over k/v (B,n,Hkv,Dh), keys
+    masked by ``keep`` (B or 1, n); a row whose keys are all masked gives
+    (NEG_INF, 0, 0)."""
+    b, _, hq, dh = q.shape
+    n, hkv = k.shape[1], k.shape[2]
+    qg = q.reshape(b, hkv, hq // hkv, dh)
+    sc = torch.einsum("bhgd,bkhd->bhgk", qg.float(), k.float())
+    sc = sc * (1.0 / math.sqrt(dh))
+    keep = keep.expand(b, n)[:, None, None, :]
+    sc = torch.where(keep, sc, NEG_INF)
+    m = sc.amax(dim=-1)                                      # (B,Hkv,G)
+    p = torch.exp(sc - m[..., None]) * keep
+    acc = torch.einsum("bhgk,bkhd->bhgd", p.to(v.dtype).float(), v.float())
+    return m, p.sum(dim=-1), acc
+
+
+def _decode_shards(q, cache: KVCache, cache_len: Index,
+                   window: Optional[int], ring: bool) -> torch.Tensor:
+    """:func:`decode_attention` over a cache of DTensors, each rank on its
+    own shard, no cache byte moved. A cache split on heads (or not at
+    all): q takes the same split and each rank attends over its heads with
+    the plain arithmetic. A cache split on seq
+    (tiny-kv archs): q is whole on that mesh dim, each rank scores its own
+    keys at their global positions, and the partial softmaxes combine
+    flash-decode style: all-reduce the row max, rescale, all-reduce the
+    sums (what the reference's GSPMD derives from the seq-split cache)."""
+    import torch.distributed._functional_collectives as funcol
+    from torch.distributed.tensor import Replicate
+    mesh, placements = cache.k.device_mesh, tuple(cache.k.placements)
+    if any(p.is_shard(3) for p in placements):
+        raise NotImplementedError("decode over a cache split on head_dim")
+    seq_dims = [d for d, p in enumerate(placements) if p.is_shard(1)]
+    if len(seq_dims) > 1:
+        raise NotImplementedError("a cache split on seq over several mesh "
+                                  "dims")
+    s = cache.k.shape[1]
+    q_pl = tuple(Replicate() if p.is_shard(1) else p for p in placements)
+    q = as_dtensor(q, mesh).redistribute(mesh, q_pl)
+
+    def attend(spans, q, k, v, clen):
+        if not seq_dims:    # every position here: the plain arithmetic
+            return _decode_whole(q, k, v, clen, window, ring)
+        off, n = spans[1].get(1, (0, s))
+        pos = off + torch.arange(n, device=q.device)[None, :]
+        m, l, acc = _partial_softmax(q, k, v, _keep(pos, clen, s, window,
+                                                    ring))
+        group = (mesh, seq_dims[0])
+        m_all = funcol.all_reduce(m, "max", group)
+        scale = torch.exp(m - m_all)
+        l = funcol.all_reduce(l * scale, "sum", group)
+        acc = funcol.all_reduce(acc * scale[..., None], "sum", group)
+        out = acc / l.clamp_min(1e-30)[..., None]
+        return out.reshape(q.shape).to(q.dtype)
+
+    return shard_call(attend, q_pl, q, cache.k, cache.v,
+                      _rows_like(cache_len, cache.k))
+
+
+def _span(cache: KVCache, k: torch.Tensor, widx: Index) -> Tuple[int, int]:
+    """(start, length) of a span write, clamped like
+    ``jax.lax.dynamic_update_slice``: the update always fits."""
+    s_max, t = cache.k.shape[1], k.shape[1]
+    if t > s_max:
+        raise ValueError(f"{t} new entries do not fit a cache of {s_max}")
+    return min(max(int(widx), 0), s_max - t), t
 
 
 def _write(cache: KVCache, k: torch.Tensor, v: torch.Tensor, widx: Index,
            per_slot: bool) -> int:
     """Write the new k/v into ``cache`` in place; returns the end of the
-    written span for a span write (0 for a per-slot write)."""
+    written span for a span write (0 for a per-slot write). A cache of
+    DTensors is written where it lies (:func:`_write_shards`)."""
+    if is_dtensor(cache.k):
+        return _write_shards(cache, k, v, widx, per_slot)
     if per_slot:
         # per-slot decode write (continuous batching: ragged lengths)
         rows = torch.arange(k.shape[0], device=k.device)
@@ -196,13 +312,48 @@ def _write(cache: KVCache, k: torch.Tensor, v: torch.Tensor, widx: Index,
         cache.k[rows, cols] = k[:, 0].to(cache.k.dtype)
         cache.v[rows, cols] = v[:, 0].to(cache.v.dtype)
         return 0
-    s_max, t = cache.k.shape[1], k.shape[1]
-    if t > s_max:
-        raise ValueError(f"{t} new entries do not fit a cache of {s_max}")
-    # clamped like jax.lax.dynamic_update_slice: the update always fits
-    start = min(max(int(widx), 0), s_max - t)
+    start, t = _span(cache, k, widx)
     cache.k[:, start:start + t] = k.to(cache.k.dtype)
     cache.v[:, start:start + t] = v.to(cache.v.dtype)
+    return start + t
+
+
+def _write_shards(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
+                  widx: Index, per_slot: bool) -> int:
+    """:func:`_write` into a cache of DTensors: the new k/v take the
+    cache's split of batch and heads (whole on seq), and each rank writes
+    the positions its own seq shard holds, at ``widx - offset``."""
+    from torch.distributed.tensor import Replicate
+    mesh, s_max = cache.k.device_mesh, cache.k.shape[1]
+    kv_pl = tuple(Replicate() if p.is_shard(1) else p
+                  for p in cache.k.placements)
+    k, v = (as_dtensor(x, mesh).redistribute(mesh, kv_pl) for x in (k, v))
+    if per_slot:
+        def write(spans, ck, cv, k, v, w):
+            off, n = spans[0].get(1, (0, s_max))
+            rows = torch.arange(ck.shape[0], device=ck.device)
+            cols = w.to(torch.long) - off
+            inside = ((cols >= 0) & (cols < n))[:, None, None]
+            cols = cols.clamp(0, n - 1)
+            # every row is written: the new k/v where its slot lies in this
+            # rank's shard, the value already there elsewhere
+            for c, new in ((ck, k), (cv, v)):
+                c[rows, cols] = torch.where(inside, new[:, 0].to(c.dtype),
+                                            c[rows, cols])
+
+        shard_call(write, None, cache.k, cache.v, k, v,
+                   _rows_like(widx, cache.k))
+        return 0
+    start, t = _span(cache, k, widx)
+
+    def write_span(spans, ck, cv, k, v):
+        off, n = spans[0].get(1, (0, s_max))
+        lo, hi = max(start, off), min(start + t, off + n)
+        if lo < hi:
+            ck[:, lo - off:hi - off] = k[:, lo - start:hi - start].to(ck.dtype)
+            cv[:, lo - off:hi - off] = v[:, lo - start:hi - start].to(cv.dtype)
+
+    shard_call(write_span, None, cache.k, cache.v, k, v)
     return start + t
 
 
@@ -247,8 +398,13 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
             out = decode_attention(q, cache, cache_index + 1, window=window,
                                    ring=ring)
             return out.reshape(*x.shape[:2], -1) @ p["wo"], new_cache
-        # prefill: attend over the filled prefix (masked by causal)
-        k, v = cache.k[:, :end], cache.v[:, :end]
+        # prefill: attend over the filled prefix (masked by causal), which
+        # is the new k/v itself where the write began at 0 (a cache split
+        # on seq is then not gathered to be read back)
+        if end == x.shape[1]:
+            k, v = k.to(cache.k.dtype), v.to(cache.v.dtype)
+        else:
+            k, v = cache.k[:, :end], cache.v[:, :end]
 
     out = prefill_attention(q, k, v, causal=causal and not cross,
                             window=window, chunk_q=cfg.attn_chunk_q)

@@ -14,7 +14,8 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import constrain
+from ..dist.sharding import (as_dtensor, constrain, current_mesh, is_dtensor,
+                             shard_call)
 
 Params = Dict[str, Any]
 
@@ -118,16 +119,54 @@ def embed(table: torch.Tensor, tokens: torch.Tensor) -> torch.Tensor:
     out with d over ``model`` (replicated where d does not divide it), so
     the rows come back with d over ``model``: a vocab-sharded table would
     give a masked partial sum, which DTensor cannot reduce for a batch
-    sharded over another mesh dim."""
+    sharded over another mesh dim. Fewer tokens than table rows (a decode
+    step) are looked up where the table lies instead (:func:`_lookup`):
+    the rows' all-reduce moves less than the table."""
+    if current_mesh() is not None and is_dtensor(table) \
+            and tokens.numel() < table.shape[0]:
+        return constrain(_lookup(table, tokens), ["batch", None, "model"])
     return F.embedding(tokens, constrain(table, [None, "model"]))
+
+
+def _lookup(table, tokens: torch.Tensor) -> torch.Tensor:
+    """``F.embedding`` of a DTensor table without moving it: every rank
+    takes all the tokens and looks up the rows of its own vocab shard (0
+    for a token outside it), so the rows come back Partial over the mesh
+    dims that split the vocab, and split on d where the table's d is."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    mesh = table.device_mesh
+    tokens = as_dtensor(tokens, mesh).redistribute(
+        mesh, (Replicate(),) * mesh.ndim)
+    out = tuple(Partial() if p.is_shard(0) else Shard(2) if p.is_shard(1)
+                else Replicate() for p in table.placements)
+
+    def look(spans, tab, tok):
+        off, n = spans[0].get(0, (0, tab.shape[0]))
+        idx = tok.long() - off
+        inside = ((idx >= 0) & (idx < n))[..., None]
+        return F.embedding(idx.clamp(0, n - 1), tab) * inside.to(tab.dtype)
+
+    return shard_call(look, out, table, tokens)
 
 
 def unembed(table_or_head: torch.Tensor, x: torch.Tensor, *,
             tied: bool) -> torch.Tensor:
     """Logits in f32: ``x @ head`` (or ``x @ table.T`` when tied). Under a
-    mesh the table is gathered whole first: contracting over its sharded
-    d would leave (B, T, V) f32 logits Partial, and their all-reduce moves
-    B·T/d times the table's bytes."""
-    w = constrain(table_or_head, [None, None])
-    w = w.t() if tied else w
-    return x.float() @ w.float()
+    mesh a split table is gathered whole first where the rank has more
+    rows than the table's bytes over 4 V: contracting over its sharded d
+    would leave (B, T, V) f32 logits Partial, and their all-reduce would
+    move more than the table. A decode step's few rows take that
+    all-reduce instead (1.6 MB for 8 rows of granite-3-8b, where the table
+    is 403 MB)."""
+    v = table_or_head.shape[0] if tied else table_or_head.shape[1]
+    local = x.to_local() if is_dtensor(x) else x
+    rows = local.numel() // max(local.shape[-1], 1)
+    table_bytes = table_or_head.numel() * table_or_head.element_size()
+    split = is_dtensor(table_or_head) and any(
+        p.is_shard() for p in table_or_head.placements)
+    if current_mesh() is None or not split or 4 * rows * v > table_bytes:
+        w = constrain(table_or_head, [None, None])
+        w = w.t() if tied else w
+        return x.float() @ w.float()
+    w = table_or_head.t() if tied else table_or_head
+    return constrain(x.float() @ w.float(), ["batch", None, None])

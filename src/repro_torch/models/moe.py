@@ -19,7 +19,8 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import constrain, shard_map_batch
+from ..dist.sharding import (constrain, current_mesh, is_dtensor, meet,
+                             shard_map_batch)
 from .config import ArchConfig
 from .layers import Params, dense_init, normal
 
@@ -90,6 +91,14 @@ def _gather_back(out_e: torch.Tensor, slot_e: torch.Tensor,
     return out_e[rows[:, None], slot_e, slot_c]
 
 
+def _stationary(expert_in: torch.Tensor, w: torch.Tensor) -> bool:
+    """Whether the experts run where their weights lie: under a mesh,
+    where the (B, E, C, D) slot rows are fewer elements than one expert
+    tensor, so moving the rows costs less than gathering the weights."""
+    return current_mesh() is not None and is_dtensor(w) \
+        and expert_in.numel() < w.numel()
+
+
 def moe_apply(p: Params, x: torch.Tensor,
               cfg: ArchConfig) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (B, T, D) -> (out (B, T, D), aux load-balance loss ()).
@@ -97,7 +106,10 @@ def moe_apply(p: Params, x: torch.Tensor,
     Under a mesh the tables and both gathers run batch-locally on each
     rank's rows (``shard_map_batch``), and the expert tensors take the
     batch over the data axes and the experts over ``model`` (or, where E
-    does not divide it, the expert FFN width: first-divisible-wins)."""
+    does not divide it, the expert FFN width: first-divisible-wins). Where
+    the slot rows are fewer than an expert tensor's elements (a decode
+    step) the weights stay as they lie and the rows are laid out to meet
+    them (:func:`_stationary`)."""
     b, t, d = x.shape
     e, k = cfg.n_experts, cfg.top_k
     c = moe_capacity(cfg, t)
@@ -113,18 +125,27 @@ def moe_apply(p: Params, x: torch.Tensor,
     ef = gate_idx.reshape(b, t * k)
 
     xp = torch.cat([x, x.new_zeros((b, 1, d))], dim=1)
-    expert_in = constrain(shard_map_batch(_gather_slots, xp, sel),
-                          ["batch", "model", None, None])   # (B,E,C,D)
-    # the experts' weights split as the expert tensors do (E over `model`,
-    # else the FFN width), so each rank's einsums need no other rank's part
-    w_gate, w_up = (constrain(p[name], ["model", None, "model"])
-                    for name in ("w_gate", "w_up"))
-    w_down = constrain(p["w_down"], ["model", "model", None])
-    h = F.silu(torch.einsum("becd,edf->becf", expert_in, w_gate)) * \
-        torch.einsum("becd,edf->becf", expert_in, w_up)
-    h = constrain(h, ["batch", "model", None, "model"])
-    out_e = constrain(torch.einsum("becf,efd->becd", h, w_down),
-                      ["batch", "model", None, None])
+    expert_in = shard_map_batch(_gather_slots, xp, sel)      # (B,E,C,D)
+    if _stationary(expert_in, p["w_gate"]):
+        expert_in = meet(expert_in, p["w_gate"], {0: 1, 1: 3})
+        h = F.silu(torch.einsum("becd,edf->becf", expert_in, p["w_gate"])) \
+            * torch.einsum("becd,edf->becf", expert_in, p["w_up"])
+        out_e = torch.einsum("becf,efd->becd",
+                             meet(h, p["w_down"], {0: 1, 1: 3}),
+                             p["w_down"])
+    else:
+        expert_in = constrain(expert_in, ["batch", "model", None, None])
+        # the experts' weights split as the expert tensors do (E over
+        # `model`, else the FFN width), so each rank's einsums need no
+        # other rank's part
+        w_gate, w_up = (constrain(p[name], ["model", None, "model"])
+                        for name in ("w_gate", "w_up"))
+        w_down = constrain(p["w_down"], ["model", "model", None])
+        h = F.silu(torch.einsum("becd,edf->becf", expert_in, w_gate)) * \
+            torch.einsum("becd,edf->becf", expert_in, w_up)
+        h = constrain(h, ["batch", "model", None, "model"])
+        out_e = constrain(torch.einsum("becf,efd->becd", h, w_down),
+                          ["batch", "model", None, None])
 
     # combine: gather each token's k slots back, weight, sum
     slot_e = ef.clamp(0, e - 1)

@@ -28,7 +28,10 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
+from ..dist.sharding import (current_mesh, is_dtensor, local_call, meet,
+                             shard_map_batch, whole_dim)
 from .config import ArchConfig
 from .layers import Params, dense_init, normal, rmsnorm, rmsnorm_init
 
@@ -43,6 +46,16 @@ class GLAState(NamedTuple):
     """The carried matrix state of the core."""
 
     s: torch.Tensor    # (B, H, N, P) f32
+
+
+def _cumsum_t(x: torch.Tensor) -> torch.Tensor:
+    """``cumsum`` over dim 1 (time). A DTensor's runs on each rank's shard,
+    time whole: DTensor in torch 2.11 has no sharding rule for the
+    ``flip`` in cumsum's backward."""
+    if is_dtensor(x):
+        x = whole_dim(x, 1)
+        return local_call(lambda t: torch.cumsum(t, dim=1), x.placements, x)
+    return torch.cumsum(x, dim=1)
 
 
 def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -65,7 +78,7 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ys = []
     for lo in range(0, t, c):
         q_i, k_i, v_i = qf[:, lo:lo + c], kf[:, lo:lo + c], vf[:, lo:lo + c]
-        cum = torch.cumsum(la[:, lo:lo + c], dim=1)          # (B,c,H)
+        cum = _cumsum_t(la[:, lo:lo + c])                    # (B,c,H)
         # intra-chunk: M[i,j] = exp(cum_i - cum_j) for i >= j, masked in
         # the exponent (see the module docstring)
         diff = cum[:, :, None, :] - cum[:, None, :, :]       # (B,c,c,H)
@@ -86,7 +99,12 @@ def gla_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def gla_step(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
              a: torch.Tensor, state: GLAState
              ) -> Tuple[torch.Tensor, GLAState]:
-    """Single-token recurrent step. q,k: (B,1,H,N); v: (B,1,H,P); a: (B,1,H)."""
+    """Single-token recurrent step. q,k: (B,1,H,N); v: (B,1,H,P); a: (B,1,H).
+    A DTensor state stays where it lies: the step's inputs are laid out to
+    meet it (its batch, heads, N and P splits)."""
+    q, k = (meet(x, state.s, {0: 0, 1: 2, 2: 3}) for x in (q, k))
+    v = meet(v, state.s, {0: 0, 1: 2, 3: 3})
+    a = meet(a, state.s, {0: 0, 1: 2})
     s = state.s * a[:, 0, :, None, None].float()
     s = s + k[:, 0].float()[..., :, None] * v[:, 0].float()[..., None, :]
     y = torch.einsum("bhn,bhnp->bhp", q[:, 0].float(), s)
@@ -119,7 +137,9 @@ def conv_apply(p: Params, x: torch.Tensor) -> torch.Tensor:
 
 def conv_step(p: Params, x1: torch.Tensor, state: torch.Tensor
               ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x1: (B, 1, C); state: (B, K-1, C) previous inputs."""
+    """x1: (B, 1, C); state: (B, K-1, C) previous inputs (a DTensor state
+    stays where it lies: x1 takes its batch and channel splits)."""
+    x1 = meet(x1, state, {0: 0, 2: 2})
     w = p["w"].float()
     window = torch.cat([state.float(), x1.float()], dim=1)        # (B,K,C)
     out = torch.einsum("bkc,kc->bc", window, w)[:, None]
@@ -345,7 +365,9 @@ def _slstm_cell(p, cfg, pre, state: SLSTMCache
     heads = cfg.n_heads
     dh = d_inner // heads
     b = pre.shape[0]
-    hh = state.h.reshape(b, heads, dh)
+    # the heads' recurrence reads each head's whole h: a state split on its
+    # channels over a mesh is gathered there (B x d_inner f32)
+    hh = whole_dim(state.h, 1).reshape(b, heads, dh)
     rec = torch.einsum("bhd,hdg->bhg", hh.float(),
                        p["r"].float()).reshape(b, 4 * d_inner)
     z, i, f, o = torch.chunk(pre.float() + rec, 4, dim=-1)
@@ -357,6 +379,41 @@ def _slstm_cell(p, cfg, pre, state: SLSTMCache
     n = f * state.n + i
     h = o * c / n.abs().clamp_min(1.0)
     return h, SLSTMCache(c=c, n=n, h=h)
+
+
+def _slstm_scan(p, cfg, pre, state: SLSTMCache
+                ) -> Tuple[torch.Tensor, SLSTMCache]:
+    """The cell over every token of ``pre`` (B, T, 4*d_inner): (h of each
+    token (B, T, d_inner), the last state)."""
+    hs = []
+    for s in range(pre.shape[1]):
+        h, state = _slstm_cell(p, cfg, pre[:, s], state)
+        hs.append(h)
+    return torch.stack(hs, dim=1), state
+
+
+def _slstm_scan_in_chunks(p, cfg, pre, state: SLSTMCache, chunk: int
+                          ) -> Tuple[torch.Tensor, SLSTMCache]:
+    """:func:`_slstm_scan` over ``chunk`` tokens at a time, each chunk
+    recomputed in the backward pass while autograd records: the per-token
+    activations of one chunk, not of the whole sequence, are held at once
+    (a mesh rank's 16 rows of a train_4k batch held ~6 MB a token, past
+    80 GB over 4,096 tokens)."""
+    if not (torch.is_grad_enabled()
+            and (pre.requires_grad or p["r"].requires_grad)):
+        return _slstm_scan(p, cfg, pre, state)
+
+    def part(pre_c, r, *st):
+        hs, st = _slstm_scan(dict(p, r=r), cfg, pre_c, SLSTMCache(*st))
+        return (hs, *st)
+
+    hs = []
+    for s0 in range(0, pre.shape[1], chunk):
+        h_c, *st = checkpoint(part, pre[:, s0:s0 + chunk], p["r"], *state,
+                              use_reentrant=False)
+        state = SLSTMCache(*st)
+        hs.append(h_c)
+    return torch.cat(hs, dim=1), state
 
 
 def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
@@ -372,12 +429,15 @@ def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
     if t == 1:
         h, state = _slstm_cell(p, cfg, pre[:, 0], state)
         hs = h[:, None]
+    elif current_mesh() is None:
+        hs, state = _slstm_scan(p, cfg, pre, state)
     else:
-        hs = []
-        for s in range(t):
-            h, state = _slstm_cell(p, cfg, pre[:, s], state)
-            hs.append(h)
-        hs = torch.stack(hs, dim=1)                        # (B,T,d_inner)
+        # the token loop on each rank's rows as plain tensors: thousands of
+        # small ops, each of which DTensor would dispatch (minutes a layer)
+        hs, state = shard_map_batch(
+            lambda pre, c, n, h, r: _slstm_scan_in_chunks(
+                dict(p, r=r), cfg, pre, SLSTMCache(c, n, h), cfg.ssm_chunk),
+            pre, *state, whole=(p["r"],))
     y = rmsnorm(p["out_norm"], hs.to(x.dtype), cfg.norm_eps)
     out = y @ p["w_out"]
     return out.to(x.dtype), (state if cache is not None else None)

@@ -42,7 +42,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..dist.sharding import constrain, whole_dim
+from ..dist.sharding import constrain, current_mesh, whole_dim
 from ..tree import leaves, rebuild, tree_map
 from . import ssm
 from .attention import Index, KVCache, attn_apply, attn_init, init_kv_cache
@@ -59,8 +59,17 @@ def _stack(trees):
 
 
 def _at(tree, *idx):
-    """``tree`` with every leaf indexed by ``idx`` (views)."""
-    return tree_map(lambda v: v[idx], tree)
+    """``tree`` with every leaf indexed by ``idx`` (views). A cache split
+    over a mesh on one of those stacked axes would give gathered copies,
+    which a write would not reach: that raises."""
+    def view(v):
+        if any(getattr(p, "dim", len(idx)) < len(idx)
+               for p in getattr(v, "placements", ())):
+            raise ValueError(f"a cache leaf {tuple(v.shape)} split over the "
+                             f"mesh on a stacked layer axis ({v.placements}) "
+                             f"has no per-layer view to write into")
+        return v[idx]
+    return tree_map(view, tree)
 
 
 def _unstack(tree, depth: int = 1):
@@ -292,12 +301,26 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
     def cache_at(key, *idx):
         return _at(caches[key], *idx) if use_cache else None
 
+    # under a mesh a rank holds whole the activations DTensor cannot split
+    # (xlstm's 4 heads on 16 ranks: 1 GB f32 tensors a layer), and the
+    # recompute of a several-layer super-block held all its layers' at once
+    # (past 80 GB for a rank of xlstm-1.3b x train_4k): there each layer of
+    # such a super-block is recomputed on its own as well
+    per_layer = (nested and call is not _direct and current_mesh() is not None
+                 and cfg.remat_policy == "nothing_saveable")
+
     def attn_mlp(pl, x, cache, **kw):
-        return _apply_attn_mlp(pl, x, cfg, positions, use_moe=False,
-                               cache=cache, cache_index=cache_index, **kw)[0]
+        fn = functools.partial(_apply_attn_mlp, cfg=cfg, positions=positions,
+                               use_moe=False, cache=cache,
+                               cache_index=cache_index, **kw)
+        return (checkpoint(fn, pl, x, use_reentrant=False) if per_layer
+                else fn(pl, x))[0]
 
     def recurrent(apply, pl, x, cache):
-        dx, new = apply(pl, x, cfg, cache=cache)
+        if per_layer:
+            dx, new = checkpoint(apply, pl, x, cfg, use_reentrant=False)
+        else:
+            dx, new = apply(pl, x, cfg, cache=cache)
         if cache is not None:   # the new state into the stacked views
             for view, leaf in zip(cache, new):
                 view.copy_(leaf)
@@ -308,7 +331,7 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
         if fam in ("dense", "moe"):
             cache = None
             if use_cache:
-                cache = KVCache(caches["blocks"].k[i], caches["blocks"].v[i])
+                cache = cache_at("blocks", i)
             return _apply_attn_mlp(layers["blocks"][i], x, cfg,
                                    positions, use_moe=fam == "moe",
                                    window=cfg.window, cache=cache,

@@ -22,6 +22,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from ..dist.sharding import laid_out_as
 from ..tree import leaves, tree_map
 
 
@@ -84,15 +85,6 @@ def global_norm(tree: Any) -> torch.Tensor:
     return torch.sqrt(sum(_sum_squares(x) for _, x in leaves(tree)))
 
 
-def _laid_out_as(x: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
-    """``x`` in ``like``'s placements where both are DTensors that differ
-    (a ZeRO-1 moment and its param), else ``x`` itself."""
-    placements = getattr(like, "placements", None)
-    if placements is None or x.placements == placements:
-        return x
-    return x.redistribute(like.device_mesh, placements)
-
-
 @torch.no_grad()
 def update(cfg: OptConfig, grads: Any, state: OptState, params: Any, *,
            grad_norm: Optional[torch.Tensor] = None
@@ -103,7 +95,8 @@ def update(cfg: OptConfig, grads: Any, state: OptState, params: Any, *,
     ``global_norm(grads)`` where ``grads`` is one rank's slab of a larger
     tree whose norm the clip must use. DTensor leaves may be laid out
     differently from their moments (ZeRO-1): each gradient is moved to its
-    moments' placements, and each step to its param's."""
+    moments' placements (the mesh step has done so before the call), and
+    each step to its param's."""
     gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
     count = state.count + 1
@@ -117,14 +110,14 @@ def update(cfg: OptConfig, grads: Any, state: OptState, params: Any, *,
         raise ValueError("grads, moments and params differ in structure")
     for (_, g), (_, m), (_, v), (_, p) in zip(g_leaves, m_leaves, v_leaves,
                                               p_leaves):
-        g32 = _laid_out_as(g.to(torch.float32, copy=True).mul_(scale), m)
+        g32 = laid_out_as(g.to(torch.float32, copy=True).mul_(scale), m)
         m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
         v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
         step = torch.div(m, b1c, out=g32)
         den = torch.div(v, b2c).sqrt_().add_(cfg.eps)
         step.div_(den)
         del den
-        step = _laid_out_as(step, p)
+        step = laid_out_as(step, p)
         if p.ndim >= 2:  # decoupled weight decay on matrices only
             step.add_(p, alpha=cfg.weight_decay)
         # p - lr * step in f32, then rounded to the param dtype

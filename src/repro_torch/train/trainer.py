@@ -8,8 +8,8 @@ Two variants, as in the reference:
   then writes the new params and moments in place. Given a ``mesh`` (a
   ``DeviceMesh``), the state's leaves are DTensors placed by
   :func:`state_shardings` (:func:`jit_train_step` places them), the batch
-  is sharded over the data axes, and the gradients reduce over them
-  through DTensor's collectives (a reduce-scatter onto ZeRO-1 moments).
+  is sharded over the data axes, and each gradient is reduce-scattered
+  onto its ZeRO-1 moments' placements before the clip.
 * :func:`make_compressed_train_step`: the paper's technique on the
   cross-pod axis. Params carry a leading pod-replica dimension; each pod's
   gradient is BSGS-top-k compressed with error feedback by
@@ -98,6 +98,17 @@ def state_shardings(state: TrainState, cfg: ArchConfig, mesh: Any,
     return TrainState(params=p_sh, opt=o_sh, step=shd.NamedSharding(mesh, ()))
 
 
+def _laid_out_as_moments(grads: Any, moments: Any) -> Any:
+    """Each gradient (Partial over the data axes as autograd gives it) in
+    its ZeRO-1 moments' placements: one reduce-scatter a leaf, so the
+    clip's global norm sums squares over shards and all-reduces a scalar
+    (the reference's GSPMD places the gradients by the params'
+    ``out_shardings`` in the same way)."""
+    return rebuild(grads, iter([
+        shd.laid_out_as(g, m) for (_, g), (_, m) in zip(leaves(grads),
+                                                        leaves(moments))]))
+
+
 def _constrain_batch(batch: Dict[str, torch.Tensor], mesh: Any):
     rows = shd.NamedSharding(mesh, (shd.batch_axes(mesh),)).placements
     return {k: shd.as_dtensor(v, mesh).redistribute(mesh, rows)
@@ -120,6 +131,8 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig,
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
         total, metrics, grads = _grads(
             lambda p: transformer.loss_fn(p, cfg, batch), state.params)
+        if mesh is not None:
+            grads = _laid_out_as_moments(grads, state.opt.m)
         params, new_opt, om = opt.update(ocfg, grads, state.opt, state.params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return TrainState(params=params, opt=new_opt, step=state.step + 1), \

@@ -6,7 +6,9 @@ process group), the cell the reference's ``tests/test_dryrun_smoke.py``
 compiles: the record must say ``ok`` and count more than 1e9 FLOPs, more
 than 1e8 bytes and some collective bytes. Without ``--device`` the run is
 on the card, so on a host without one it fails and records the error; a
-cell the skip rules rule out records ``skipped``.
+cell the skip rules rule out records ``skipped``. Two serving cells run
+on the same small mesh on meta: decode from a cache split over it, each
+record with its collectives by the op that caused them.
 """
 
 import json
@@ -14,16 +16,18 @@ import os
 import subprocess
 import sys
 
+import pytest
+
 from repro_torch.launch import dryrun
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CELL = ["--arch", "whisper-tiny", "--shape", "train_4k", "--mesh", "4x4"]
 
 
-def _run(out, *extra):
+def _run(out, *extra, cell=CELL):
     env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
     return subprocess.run(
-        [sys.executable, "-m", "repro_torch.launch.dryrun", *CELL, "--out",
+        [sys.executable, "-m", "repro_torch.launch.dryrun", *cell, "--out",
          str(out), "--force", *extra], env=env, capture_output=True,
         text=True, timeout=400)
 
@@ -41,6 +45,41 @@ def test_dryrun_cell_runs_on_a_small_mesh(tmp_path):
     assert rec["step_s"] is None and "peak_allocated_bytes" not in rec["memory"]
     assert rec["memory"]["argument_size_in_bytes"] > 0
     assert rec["analytic"]["model_flops"] > 0
+
+
+@pytest.mark.parametrize("arch,shape", [("granite-3-8b", "decode_32k"),
+                                        ("h2o-danube-3-4b", "long_500k")])
+def test_a_decode_cell_runs_on_a_small_mesh(tmp_path, arch, shape):
+    """A serving cell as rank 0 of (4, 4) on meta: granite's 8 kv heads
+    split 4 ways (the cache splits heads), h2o's ring cache of its window.
+    The record holds what a train cell's does, and the collectives by the
+    op that caused them; none moves as much as one layer's k shard."""
+    out = _run(tmp_path, "--device", "meta",
+               cell=["--arch", arch, "--shape", shape, "--mesh", "4x4"])
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads((tmp_path / f"{arch}__{shape}__4x4__meta.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["corrected"]["flops"] > 1e8
+    assert rec["corrected"]["bytes"] > 1e8
+    assert rec["memory"]["argument_size_in_bytes"] > 0
+    assert rec["analytic"]["model_flops"] > 0
+    coll = rec["collectives"]
+    assert coll["total_bytes"] > 0
+    assert sum(v["bytes"] for ops in coll["by_op"].values()
+               for v in ops.values()) == coll["total_bytes"]
+    assert {k: sum(v["count"] for v in ops.values())
+            for k, ops in coll["by_op"].items()} == coll["count_by_kind"]
+    big = coll["largest"]
+    assert big["op"] in coll["by_op"][big["kind"]]
+    assert big["bytes"] >= max(v["bytes"] / v["count"] for ops in
+                               coll["by_op"].values() for v in ops.values())
+    # one layer's k shard on the rank: rows / 4, positions (a window-sized
+    # ring for h2o), kv heads / 4, head_dim, bf16
+    rows, positions, heads, hd = ((128 // 4, 32768, 8 // 4, 128)
+                                  if shape == "decode_32k" else
+                                  (1, 4096, 8 // 4, 120))
+    assert big["bytes"] < rows * positions * heads * hd * 2, big
 
 
 def test_dryrun_defaults_to_the_card(tmp_path):

@@ -8,11 +8,15 @@ one step; the whole params, gathered, and the metrics are held to one
 plain ``make_train_step`` call on the same state and batch in this
 process, in f32: the loss, grad norm and lr within 1e-5 relative, every
 param leaf and every first-moment leaf (0.1 of the gradient) within 1e-5
-of its max |x| (the sums run in another order across ranks). Three
+of its max |x| (the sums run in another order across ranks). Four
 reduced configs: a dense arch, a MoE arch (tables and gathers batch-local
-through ``shard_map_batch``, experts over ``model``), and the dense arch
+through ``shard_map_batch``, experts over ``model``), the dense arch
 with one kv head, which takes the full-head form (k and v broadcast to
-the query heads before the heads split).
+the query heads before the heads split), and an ssm arch (xlstm: sLSTM's
+token loop runs on each rank's rows as plain tensors, its recurrent matrix
+whole, with its gradient summed over the ranks' rows). The gradients ``opt.update``
+receives already hold their moments' placements: the mesh step
+reduce-scatters them there before the clip.
 """
 
 import dataclasses
@@ -33,7 +37,8 @@ WORLD = 4
 MESH = ((2, 2), ("data", "model"))
 CASES = {"dense": ("granite-3-8b", {}),
          "moe": ("granite-moe-1b-a400m", {}),
-         "one_kv_head": ("granite-3-8b", {"n_kv_heads": 1})}
+         "one_kv_head": ("granite-3-8b", {"n_kv_heads": 1}),
+         "ssm": ("xlstm-1.3b", {})}
 PROFILES = ("tp", "fsdp_tp")
 # AdamW's first step moves a param by ~lr wherever |g| >> eps, whatever |g|:
 # at lr 1e-4 the rounding of near-zero gradients stays inside the bound,
@@ -68,6 +73,17 @@ def rank_main(rank, init_file, out_dir):
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=WORLD, rank=rank,
                             timeout=datetime.timedelta(seconds=JOIN_S))
+    placed = []
+    update = opt.update
+
+    def spy(ocfg, grads, state, params, **kw):
+        # each gradient's placements beside its moments'
+        placed.append([(tuple(g.placements), tuple(m.placements))
+                       for (_, g), (_, m) in zip(leaves(grads),
+                                                 leaves(state.m))])
+        return update(ocfg, grads, state, params, **kw)
+
+    opt.update = spy
     try:
         mesh = make_mesh(*MESH, device_type="cpu")
         out = {}
@@ -83,9 +99,11 @@ def rank_main(rank, init_file, out_dir):
                 out[case, profile] = {
                     "params": tree_map(lambda t: t.full_tensor(), state.params),
                     "m": tree_map(lambda t: t.full_tensor(), state.opt.m),
-                    "metrics": m, "held": held}
+                    "metrics": m, "held": held,
+                    "grad_placements": placed[-1]}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
+        opt.update = update
         dist.destroy_process_group()
 
 
@@ -141,3 +159,18 @@ def test_mesh_step_equals_the_plain_step(ranks, case, profile):
                    for (n, a), (_, b) in zip(g, w)
                    if float((a - b).abs().max()) > RTOL * float(b.abs().max())]
             assert not bad, (rank, bad)
+
+
+@pytest.mark.parametrize("profile", PROFILES)
+@pytest.mark.parametrize("case", sorted(CASES))
+def test_update_gets_gradients_in_their_moments_placements(ranks, case,
+                                                          profile):
+    """The mesh step reduces each gradient onto its ZeRO-1 moments'
+    placements before the clip, so ``opt.update`` moves no gradient and
+    its global norm all-reduces a scalar; the moments are split over
+    ``data`` (and the gradients with them) for most leaves."""
+    for rank, got in enumerate(ranks):
+        pairs = got[case, profile]["grad_placements"]
+        assert pairs and all(g == m for g, m in pairs), (rank, pairs)
+        on_data = sum(getattr(m[0], "dim", None) is not None for _, m in pairs)
+        assert on_data > len(pairs) // 2, (rank, on_data, len(pairs))

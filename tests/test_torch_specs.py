@@ -6,7 +6,9 @@
   DTensor of its sharding's placements (the counterpart of the
   reference's ``test_make_cell_specs_have_shardings``);
 * the name-aware ``_cache_shardings`` gives every cache leaf of every
-  prefill and decode cell the reference's spec on the (16, 16) mesh.
+  prefill and decode cell the reference's spec on the (16, 16) mesh, with
+  the data axes on the batch dim past the stacked layer axes where the
+  reference's rule takes a layer axis as long as the batch.
 """
 
 import jax
@@ -73,7 +75,8 @@ def test_cache_shardings_match_the_reference(arch):
             jcfg, b, cache_len, enc_len=enc_len))
         flat, _ = jax.tree_util.tree_flatten_with_path(
             jspecs._cache_shardings(jc, jcfg, jmesh, b))
-        want = {jsh._path_str(p): tuple(s.spec) for p, s in flat}
+        want = {jsh._path_str(p): _batch_past_layers(tuple(s.spec), name_x)
+                for (p, s), name_x in zip(flat, leaves(jc))}
         pc = transformer.init_caches(cfg, b, cache_len, enc_len=enc_len,
                                      device="meta")
         got = {name: s.spec for name, s in
@@ -81,3 +84,22 @@ def test_cache_shardings_match_the_reference(arch):
         assert got == want, shape
         n += 1
     assert n >= 1
+
+
+def _batch_past_layers(spec, name_leaf):
+    """The reference's spec of a cache leaf with its data axes on the
+    leaf's batch dim: the reference's rule takes the first dim equal to
+    the serve batch, which is a stacked layer axis where a stack is as
+    long as the batch (phi3-mini-3.8b x prefill_32k: 32 layers, 32 rows),
+    and the port takes the dim past the layer axes."""
+    name, leaf = name_leaf
+    base = specs.BATCH_FROM_END.get(name.rsplit("/", 1)[-1])
+    data = ("data",)
+    first = next((d for d, e in enumerate(spec)
+                  if e == "data" or (isinstance(e, tuple) and e == data)),
+                 None)
+    if base is None or first is None or first == len(leaf.shape) - base:
+        return spec
+    spec = list(spec)
+    spec[len(leaf.shape) - base], spec[first] = spec[first], None
+    return tuple(spec)
