@@ -155,11 +155,13 @@ Phases, each of which exits non-zero on failure:
    (4, 4) mesh and granite-3-8b x train_4k on the production (16, 16) mesh,
    under a fake process group, each on the card (its own shards, random
    values: peak memory, a warm step's time, op_cost's counts) and on meta
-   (counts only); the card's FLOPs must equal meta's; each cell prints its
-   collective bytes by kind and the ten largest by the op that caused
-   them (granite's train cell beside the 552.46 / 116.42 / 22.36 GB of
-   all-reduce / all-gather / reduce-scatter it moved while the mesh step
-   still clipped Partial gradients); (d) the same for three
+   (counts only); the card's FLOPs must equal meta's, and a train cell's
+   may be at most 1.10 times one device's in the JAX reference's step
+   (``REFERENCE_RANK_FLOPS``); each cell prints its collective bytes by
+   kind and the ten largest by the op that caused them, and its ten
+   largest FLOP sites; granite's train cell may move no more collective
+   bytes and peak no higher than the 671.0 GB and 26.6 GB it took while
+   each op chose its own layout; (d) the same for three
    serving cells on the (16, 16) mesh: granite-3-8b x decode_32k (8 kv
    heads on 16: the cache splits seq, the flash-decode combine),
    mixtral-8x22b x long_500k (``fsdp_tp``, a ring cache of its 4096
@@ -2811,10 +2813,20 @@ MESH_CELLS = (("whisper-tiny", "train_4k", "4x4"),
               ("zamba2-2.7b", "long_500k", "single"))
 FLOPS_RATIO = (1.0, 2.0)   # 8c: counted FLOPs over model_flops core + attention
 DRYRUN_S = 600
-# the granite train_4k cell's collectives on the H100 (GB) while the mesh
-# step clipped Partial gradients, before they were reduced onto their moments
-UNREDUCED_COLLECTIVES_GB = {"all_reduce": 552.46, "all_gather": 116.42,
-                       "reduce_scatter": 22.36}
+# 8b: one device's FLOPs in the JAX reference's step of each train cell, from
+# tools/reference_rank_flops.py (repro.analysis.hlo_cost of the step XLA
+# compiles for host CPU devices, Auto mesh axes; jax 0.9.0). A rank of the
+# port may count at most SHARE_LIMIT times as many.
+REFERENCE_RANK_FLOPS = {
+    ("whisper-tiny", "train_4k", "4x4"): 34330411794432.0,
+    ("granite-3-8b", "train_4k", "single"): 294532079943680.0}
+SHARE_LIMIT = 1.10
+# granite-3-8b x train_4k, rank 0 of (16, 16) on the H100 while each op chose
+# its own layout (the stream split on d): the stream's layout may not move
+# more bytes or peak higher
+PER_OP_GRANITE = {"flops": 834668677038080.0, "peak_bytes": 26615210496,
+                  "collectives_gb": {"all_reduce": 536.81, "all_gather": 112.22,
+                                     "reduce_scatter": 21.95}}
 DECODE_B, DECODE_PROMPT, DECODE_STEPS = 8, 64, 8   # 8e
 
 
@@ -3082,6 +3094,17 @@ def mesh_path(torch, np, layers, workdir):
         if c["flops"] != m["flops"]:
             fail(f"dry run {name}: the card counted {c['flops']!r} FLOPs, "
                  f"meta {m['flops']!r}")
+        for op, v in list(cu["flops_by_op"].items())[:10]:
+            log(f"[dryrun {name}]   FLOPs {op}: {v['flops']!r} in "
+                f"{v['count']}")
+        if cell in REFERENCE_RANK_FLOPS:
+            share = c["flops"] / REFERENCE_RANK_FLOPS[cell]
+            log(f"[dryrun {name}] counted FLOPs over the reference's rank "
+                f"{REFERENCE_RANK_FLOPS[cell]!r}: {share!r} (limit "
+                f"{SHARE_LIMIT})")
+            if share > SHARE_LIMIT:
+                fail(f"dry run {name}: a rank counts {share!r} times the "
+                     f"reference's share of the FLOPs")
         coll = cu["collectives"]
         big = coll["largest"]
         log(f"[dryrun {name}] collectives on the card by kind (GB): "
@@ -3094,9 +3117,17 @@ def mesh_path(torch, np, layers, workdir):
         for b, kind, op, n in by_op[:10]:
             log(f"[dryrun {name}]   {kind} {op}: {b / 1e9!r} GB in {n}")
         if cell == ("granite-3-8b", "train_4k", "single"):
-            log(f"[dryrun {name}] before the gradients were reduced onto "
-                f"their moments (GB): "
-                f"{json.dumps(UNREDUCED_COLLECTIVES_GB)}")
+            was = PER_OP_GRANITE
+            total_gb = coll["total_bytes"] / 1e9
+            peak = cu["memory"]["peak_allocated_bytes"]
+            log(f"[dryrun {name}] with each op's own layout (GB): "
+                f"{json.dumps(was['collectives_gb'])}, peak "
+                f"{was['peak_bytes']} B, {was['flops']!r} FLOPs; now "
+                f"{total_gb!r} GB, peak {peak} B")
+            if total_gb > sum(was["collectives_gb"].values()) \
+                    or peak > was["peak_bytes"]:
+                fail(f"dry run {name}: {total_gb!r} GB of collectives, peak "
+                     f"{peak} B, more than with each op's own layout")
         if specs.SHAPES[cell[1]]["kind"] == "decode":
             bound = kv_shard_bytes(*cell)
             log(f"[dryrun {name}] one layer's k shard on the rank {bound} B; "

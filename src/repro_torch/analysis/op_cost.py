@@ -8,7 +8,9 @@ this process executes on plain tensors, forward and backward:
 * FLOPs of the matmul-like ops (``mm``, ``bmm``, ``addmm``, ``baddbmm``,
   convolutions, attention kernels) at the shapes they run at, from
   ``torch.utils.flop_counter``'s formulas (2 · M · N · K for a matmul);
-  elementwise ops count no FLOPs, as the reference counts only dots;
+  elementwise ops count no FLOPs, as the reference counts only dots; and
+  the same FLOPs again by ``"<op> @ <site>"`` (the site as below), so a
+  rank's excess over its share names the op that does it;
 * bytes: the operands plus the results of every op that is not a view or
   an allocation: an upper bound, since nothing is fused;
 * collective bytes (the output of each collective) and counts, by kind:
@@ -17,7 +19,8 @@ this process executes on plain tensors, forward and backward:
   the aten op whose DTensor dispatch redistributed its inputs (or
   ``redistribute`` for an explicit one, ``collective`` for one the code
   calls itself) and the innermost function of this package on the stack
-  (``backward`` inside autograd's engine). This is the counterpart of
+  (inside autograd's engine ``backward`` and the node it runs, as
+  ``backward MmBackward0``). This is the counterpart of
   reading a collective's operand in the reference's HLO text.
 
 Where the arguments are DTensors, the mode lets DTensor run the op; DTensor
@@ -58,6 +61,8 @@ class Cost:
     coll_count: Dict[str, float] = field(default_factory=dict)
     # kind -> "<op> @ <site>" -> [bytes, count]
     coll_by_op: Dict[str, Dict[str, List[float]]] = field(default_factory=dict)
+    # "<op> @ <site>" -> [FLOPs, count]
+    flops_by_op: Dict[str, List[float]] = field(default_factory=dict)
     largest: Tuple[float, str, str] = (0.0, "", "")   # bytes, kind, op
 
     @property
@@ -70,6 +75,13 @@ class Cost:
         return {"flops": self.flops, "bytes": self.bytes,
                 "coll_bytes": dict(self.coll_bytes),
                 "coll_count": dict(self.coll_count)}
+
+
+def flop_sites(cost: Cost) -> Dict[str, Dict[str, float]]:
+    """``cost``'s FLOPs by op and site, largest first, as JSON-ready
+    values."""
+    return {op: {"flops": f, "count": n} for op, (f, n) in
+            sorted(cost.flops_by_op.items(), key=lambda kv: -kv[1][0])}
 
 
 def _nbytes(tree: Any) -> int:
@@ -91,13 +103,19 @@ _SKIP = (os.path.abspath(__file__),
          os.path.join(_PKG, "dist", "sharding.py"))
 
 
+_TORCH = os.path.dirname(os.path.abspath(torch.__file__)) + os.sep
+
+
 def _site() -> Tuple[bool, str]:
     """(whether an explicit ``DTensor.redistribute`` / ``full_tensor`` is
-    on the stack, the innermost function of this package on it outside
-    the layout helpers, as ``file.py:function``, or ``backward`` inside
-    autograd's engine)."""
+    on the stack, the op's site): the innermost function of this package on
+    the stack outside the layout helpers, as ``file.py:function``; else,
+    inside autograd's engine, ``backward`` and the node it runs
+    (``backward MmBackward0``: the gradient of a forward ``mm``); else the
+    innermost function outside torch (a caller of this package's
+    functions)."""
     f = sys._getframe(2)
-    explicit, site = False, None
+    explicit, site, outside = False, None, None
     while f is not None and site is None:
         path, name = f.f_code.co_filename, f.f_code.co_name
         if path.endswith(os.path.join("distributed", "tensor", "_api.py")) \
@@ -106,9 +124,16 @@ def _site() -> Tuple[bool, str]:
         elif path.startswith(_PKG) and path not in _SKIP:
             site = f"{os.path.basename(path)}:{name}"
         elif name == "_engine_run_backward":
-            site = "backward"
+            break
+        elif outside is None and not path.startswith(_TORCH) \
+                and path not in _SKIP:
+            outside = f"{os.path.basename(path)}:{name}"
         f = f.f_back
-    return explicit, site or "backward"
+    if site is None:
+        node = getattr(torch._C, "_current_autograd_node", lambda: None)()
+        if node is not None:
+            site = f"backward {node.name()}"
+    return explicit, site or outside or "backward"
 
 
 def _kind(name: str):
@@ -147,8 +172,12 @@ class _Counter(TorchDispatchMode):
         moved = _nbytes((args, kwargs)) + _nbytes(out)
         self.cost.bytes += moved
         if packet in self._flops:
-            self.cost.flops += float(self._flops[packet](*args, **kwargs,
-                                                         out_val=out))
+            flops = float(self._flops[packet](*args, **kwargs, out_val=out))
+            self.cost.flops += flops
+            key = f"{name} @ {_site()[1]}"
+            entry = self.cost.flops_by_op.setdefault(key, [0.0, 0])
+            entry[0] += flops
+            entry[1] += 1
         kind = _kind(name) if func.namespace in ("_c10d_functional", "c10d") \
             else None
         if kind is not None:

@@ -19,13 +19,27 @@ One place decides how every tensor lays out over the mesh:
   axis, the first whose extent divides the axis size takes it and the rest
   stay replicated (a mesh axis can partition only one dim). Outside
   :func:`use_mesh` it is the identity.
-* ``shard_map_batch(fn, *args)``: run ``fn`` batch-locally on each rank's
-  rows (for the MoE dispatch's batched gathers and tables). Outside
-  :func:`use_mesh` it is ``fn(*args)``. ``local_call`` is the same for any
-  one layout shared by the args (attention's batch and heads);
-  ``shard_call`` runs ``fn`` on each arg's shard as it lies, with the
-  rank's offset along every split dim (the KV cache's decode writes and
-  the flash-decode combine over a cache split on seq).
+* ``stream(x)``, ``in_stream``, ``rejoin``: the residual stream's layout
+  of a step that writes no cache, chosen once (batch over the data axes,
+  the sequence over ``model``, whole on d); ``entering(x)`` and
+  ``use_weight(w, dim)`` lay a sub-layer's input and weights out over it:
+  column-parallel in, row-parallel out (Megatron-LM's), each weight moved
+  to where the layer uses it; ``per_op(x)`` hands MoE and recurrent
+  sub-layers the stream split on d, where their ops lay themselves out.
+
+Three helpers run a function on plain local shards, one case each:
+
+* ``shard_map_batch(fn, *args)``: ``fn`` batch-locally on each rank's
+  rows (the MoE dispatch's batched gathers and tables, a recurrent scan).
+  Outside :func:`use_mesh` it is ``fn(*args)``.
+* ``local_call(fn, placements, *args)``: every arg redistributed to one
+  shared layout first (attention's batch and heads in a prefill, a
+  cumsum over T).
+* ``shard_call(fn, out_placements, *args)``: each arg's shard as it lies,
+  with the rank's offset along every split dim, the outputs in the
+  placements the caller names: the layers over the stream (their
+  gradients Partial where the outputs split the work), the KV cache's
+  writes and the flash-decode combine over a cache split on seq.
 
 A :class:`NamedSharding` keeps the reference's per-dim spec (a tuple of
 ``None``, an axis name or a tuple of axis names, as ``PartitionSpec``
@@ -286,22 +300,34 @@ def shard_spans(x: torch.Tensor) -> dict:
 
 def shard_call(fn, out_placements: Optional[Sequence[Any]], *args):
     """Run ``fn(spans, *shards)`` on each DTensor argument's local shard as
-    it lies, with no redistribution (a KV cache stays where it is):
+    it lies, with no redistribution (lay the arguments out first:
+    :func:`entering`, :func:`use_weight`; a KV cache stays where it is):
     ``spans[i]`` is :func:`shard_spans` of argument ``i``. The outputs (a
     tensor, a tree of them, or None for a call that writes its arguments in
     place) come back as DTensors in ``out_placements`` on the arguments'
-    mesh. ``fn`` sees plain tensors; where its outputs need other ranks'
-    shards it runs the collectives itself (the callers lay small arguments
-    out first, with ``redistribute``)."""
-    from torch.distributed.tensor import DTensor
+    mesh. A mesh dim where an output is not Replicate splits the work: an
+    argument whole on it gets its gradient Partial there (each rank's part
+    of the sum; a weight's gradient over the stream is Partial over the
+    data axes), a split one keeps its split. ``fn`` sees plain tensors and
+    no ambient mesh (the plain code) and must compute each output shard
+    from its rank's shards alone; where it needs other ranks' shards it
+    runs the collectives itself. Plain tensors among ``args`` pass as they
+    are."""
+    from torch.distributed.tensor import DTensor, Partial
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
+    splits = [out_placements is not None and not p.is_replicate()
+              for p in (out_placements or (None,) * mesh.ndim)]
     spans = [shard_spans(a) for a in args]
-    out = fn(spans, *[a.to_local() if isinstance(a, DTensor) else a
-                      for a in args])
+    local = [a.to_local(grad_placements=tuple(
+                 Partial() if s and p.is_replicate() else p
+                 for s, p in zip(splits, a.placements)))
+             if isinstance(a, DTensor) else a for a in args]
+    with use_mesh(None):
+        out = fn(spans, *local)
     if out is None:
         return None
     return rebuild(out, iter([
-        DTensor.from_local(o, mesh, out_placements, run_check=False)
+        DTensor.from_local(o, mesh, tuple(out_placements), run_check=False)
         for _, o in leaves(out)]))
 
 
@@ -318,8 +344,6 @@ def shard_map_batch(fn, *args, whole: Sequence[Any] = ()):
         return fn(*args, *whole)
     axes = batch_axes(mesh)
     dsize = _axes_size(mesh, axes)
-    if dsize <= 1:
-        return fn(*args, *whole)
     from torch.distributed.tensor import Partial, Replicate
     split = all(a.shape[0] % dsize == 0 for a in args)
     # rows that do not split (a decode batch of one) are replicated, as
@@ -331,6 +355,154 @@ def shard_map_batch(fn, *args, whole: Sequence[Any] = ()):
         mesh, (Replicate(),) * mesh.ndim).to_local(grad_placements=grads)
         for w in whole]
     return local_call(lambda *a: fn(*a, *shared), rows, *args)
+
+
+# ---------------------------------------------------------------------------
+# the residual stream's layout, chosen once (Megatron-LM's)
+# ---------------------------------------------------------------------------
+
+STREAM_AXES = ("batch", MODEL)
+
+
+def stream(x: torch.Tensor) -> torch.Tensor:
+    """``x`` (B, T, ...) in the residual stream's layout: the batch over the
+    data axes, the sequence over ``model`` where it divides the axis
+    (Megatron-LM's sequence parallelism: a rank keeps 1/model of what
+    remat saves a layer), whole on d. A train step's stream takes it once,
+    at the embedding, and keeps it across every super-block
+    (:func:`rejoin`); identity outside a mesh."""
+    return constrain(x, STREAM_AXES)
+
+
+def in_stream(x: Any) -> bool:
+    """Whether DTensor ``x`` lies in the stream's layout on the ambient
+    mesh. The layers over such an ``x`` run on local shards
+    (:func:`shard_call`) of it whole on T (:func:`entering`): the
+    projections that widen it split their output over ``model``
+    (:func:`use_weight`), the ones that narrow it contract over that split
+    and leave a Partial, reduce-scattered back onto the sequence once per
+    sub-layer (:func:`rejoin`). False outside a mesh and for a stream
+    laid out otherwise: a cache's prefill and decode steps keep their rows
+    split on d, where the weights stay as they lie."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(x):
+        return False
+    spec = _resolve_spec(x.shape, STREAM_AXES, mesh)
+    return tuple(x.placements) == NamedSharding(mesh, spec).placements
+
+
+class _ReducedGrad(torch.autograd.Function):
+    """Identity forward; in the backward pass the gradient is laid out as
+    the input was (Megatron-LM's ``f``: each rank's part of a gradient
+    summed at once)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.redistribute(g.device_mesh, ctx.placements)
+
+
+def entering(x: torch.Tensor) -> torch.Tensor:
+    """DTensor ``x`` (the stream, or a cross-attention's states) entering a
+    sub-layer that runs on local shards: its batch over the data axes,
+    whole on every other dim (a sequence split over ``model`` is gathered).
+    Its gradient, Partial over the mesh dims that split the sub-layer, is
+    reduced right here to ``x``'s own layout (reduce-scattered onto a split
+    sequence), so the backward pass of the norm before it runs on the whole
+    gradient, as the plain code's does, whatever DTensor's rules would
+    choose. ``x`` itself when it is not a DTensor."""
+    if not is_dtensor(x):
+        return x
+    mesh = x.device_mesh
+    whole = NamedSharding(mesh, _resolve_spec(x.shape, ("batch",),
+                                              mesh)).placements
+    if tuple(x.placements) != whole:
+        return x.redistribute(mesh, whole)
+    return _ReducedGrad.apply(x)
+
+
+def per_op(x: torch.Tensor) -> torch.Tensor:
+    """The stream ``x`` laid out for a sub-layer whose ops lay themselves
+    out (MoE's tables and experts, a recurrent scan over T): the batch over
+    the data axes, d over ``model``, as the embedding gives a stream that
+    does not take the stream's layout, so those ops, their residual add
+    (:func:`rejoin`) and their gradients lay themselves out as they do
+    there; ``x`` itself when it is not in the stream's layout."""
+    return constrain(x, ("batch", None, MODEL)) if in_stream(x) else x
+
+
+def rejoin(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """``y`` laid out as the stream ``x`` where ``x`` is in the stream's
+    layout (a sub-layer's Partial output is reduce-scattered onto the
+    sequence; a per-op sub-layer's residual sum over :func:`per_op` of
+    ``x`` goes back from d to the sequence); ``y`` itself otherwise."""
+    return laid_out_as(y, x) if in_stream(x) else y
+
+
+def model_coordinate() -> Tuple[int, int]:
+    """(this rank's index along ``model``, the axis' size) on the ambient
+    mesh; (0, 1) outside one or without the axis."""
+    mesh = current_mesh()
+    if mesh is None or MODEL not in mesh.mesh_dim_names:
+        return 0, 1
+    d = mesh.mesh_dim_names.index(MODEL)
+    return mesh.get_coordinate()[d], mesh.size(d)
+
+
+class _UseWeight(torch.autograd.Function):
+    """A weight redistributed to where a layer uses it. Its gradient goes
+    back to the weight's own placements on the mesh dims that split the
+    weight (a reduce-scatter where it was gathered) and stays Partial on
+    the others (the data axes), where DTensor's own backward would
+    all-reduce it."""
+
+    @staticmethod
+    def forward(ctx, w, placements):
+        ctx.src = tuple(w.placements)
+        return w.redistribute(w.device_mesh, placements)
+
+    @staticmethod
+    def backward(ctx, g):
+        from torch.distributed.tensor import Partial
+        target = tuple(Partial() if p.is_replicate() and q.is_partial() else p
+                       for p, q in zip(ctx.src, g.placements))
+        return g.redistribute(g.device_mesh, target), None
+
+
+def use_weight(w: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+    """Weight ``w`` laid out for a layer over the stream: split over
+    ``model`` on ``dim`` (its output dim for a projection that widens the
+    stream, its input dim for one that narrows it), whole where ``dim`` is
+    None or its extent does not divide the axis, and whole over the data
+    axes (the ZeRO-3 gather of ``fsdp_tp``). Where ``w``'s own split falls
+    elsewhere (granite-3-8b's ``wq``, split on d_in by the largest-extent
+    rule) the weight moves, not the activation: a layer's weight is 8-32 MB
+    in bf16, the (16, 4096, 4096) activation of a train_4k rank 537 MB.
+    ``w`` itself outside a mesh or where it already lies so."""
+    mesh = current_mesh()
+    if mesh is None or not is_dtensor(w):
+        return w
+    from torch.distributed.tensor import Replicate, Shard
+    m = mesh_sizes(mesh).get(MODEL, 1)
+    split = dim is not None and m > 1 and w.shape[dim] % m == 0
+    target = tuple(Shard(dim) if name == MODEL and split else Replicate()
+                   for name in mesh.mesh_dim_names)
+    if target == tuple(w.placements):
+        return w
+    return _UseWeight.apply(w, target)
+
+
+def split_like(x: torch.Tensor, model: Any) -> tuple:
+    """``x``'s placements with the ``model`` mesh dim's replaced by
+    ``model`` (a layer's output: ``Partial()`` after a contraction over
+    the split, ``Shard(d)`` for rows split over ``model``)."""
+    mesh = current_mesh()
+    return tuple(model if name == MODEL else p
+                 for name, p in zip(mesh.mesh_dim_names, x.placements))
 
 
 # ---------------------------------------------------------------------------

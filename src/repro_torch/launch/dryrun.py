@@ -20,6 +20,7 @@ step), ``corrected`` (op_cost's FLOPs, bytes, collective bytes and counts
 by kind), ``collectives`` (bytes and counts by kind, total bytes; under
 ``by_op`` the bytes and counts of each kind by the op and site that caused
 them, and under ``largest`` the largest single collective),
+``flops_by_op`` (the FLOPs and counts by op and site, largest first),
 ``analytic`` (:mod:`repro_torch.analysis.accounting`), ``n_devices``,
 ``mesh_shape``, ``profile``. The reference's ``lower_s`` and ``compile_s``
 become ``step_s`` (a warm step's seconds; null on meta); its ``cost``
@@ -173,6 +174,7 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str, *,
             status="ok", note=note,
             step_s=step_s, memory=mem, collectives=coll,
             corrected=corrected.as_dict(), analytic=analytic,
+            flops_by_op=op_cost.flop_sites(corrected),
             n_devices=math.prod(dims), mesh_shape=list(dims),
             profile=profile or cfg.sharding_profile)
     except Exception as e:  # noqa: BLE001 (record and continue the sweep)

@@ -27,8 +27,8 @@ from typing import NamedTuple, Optional, Tuple, Union
 import torch
 from torch.utils.checkpoint import checkpoint
 
-from ..dist.sharding import (as_dtensor, constrain, current_mesh, is_dtensor,
-                              local_call, mesh_sizes, shard_call)
+from ..dist.sharding import (as_dtensor, constrain, current_mesh, in_stream,
+                              is_dtensor, local_call, mesh_sizes, shard_call)
 from .config import ArchConfig
 from .layers import Params, dense_init, rope
 
@@ -76,12 +76,19 @@ def _heads(y: torch.Tensor, h: int, hd: int) -> torch.Tensor:
     return y.reshape(*y.shape[:2], h, hd)
 
 
-def _project_qkv(p: Params, x: torch.Tensor, kv_x: torch.Tensor,
-                 cfg: ArchConfig):
+def _project_qkv(x: torch.Tensor, kv_x: torch.Tensor, wq: torch.Tensor,
+                 wk: torch.Tensor, wv: torch.Tensor, cfg: ArchConfig, *,
+                 cross: bool, use_rope: bool, q_positions, kv_positions):
+    """q of ``x`` and k, v of ``kv_x``, (B, T, h, hd) each, as many heads
+    as the weights' columns hold, with rope at their positions where
+    ``use_rope`` (q only for cross-attention)."""
     hd = cfg.hd
-    q = _heads(x @ p["wq"], cfg.n_heads, hd)
-    k = _heads(kv_x @ p["wk"], cfg.n_kv_heads, hd)
-    v = _heads(kv_x @ p["wv"], cfg.n_kv_heads, hd)
+    q, k, v = (_heads(a @ w, w.shape[-1] // hd, hd)
+               for a, w in ((x, wq), (kv_x, wk), (kv_x, wv)))
+    if use_rope:
+        q = rope(q, q_positions, cfg.rope_theta)
+        if not cross:
+            k = rope(k, kv_positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -118,15 +125,15 @@ ATTN_TILE_BYTES = 4 << 30   # the most f32 scores one call holds at once
 
 def _tiled(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
            causal: bool, window: Optional[int],
-           chunk_q: Optional[int]) -> torch.Tensor:
+           chunk_q: Optional[int], q_offset: int = 0) -> torch.Tensor:
     b, t, hq, _ = q.shape
     if chunk_q is None or t <= chunk_q \
             or 4 * b * hq * t * k.shape[1] <= ATTN_TILE_BYTES:
-        return _attend(q, k, v, 0, causal, window)
+        return _attend(q, k, v, q_offset, causal, window)
     remat = torch.is_grad_enabled() and any(x.requires_grad for x in (q, k, v))
     tiles = []
     for s0 in range(0, t, chunk_q):
-        args = (q[:, s0:s0 + chunk_q], k, v, s0, causal, window)
+        args = (q[:, s0:s0 + chunk_q], k, v, q_offset + s0, causal, window)
         tiles.append(checkpoint(_attend, *args, use_reentrant=False)
                      if remat else _attend(*args))
     return torch.cat(tiles, dim=1)
@@ -357,6 +364,83 @@ def _write_shards(cache: KVCache, k: torch.Tensor, v: torch.Tensor,
     return start + t
 
 
+def _attn_local(x, kv_x, positions, wq, wk, wv, wo, *, cfg: ArchConfig,
+                causal: bool, window: Optional[int], use_rope: bool,
+                q_rows: Optional[Tuple[int, int]], kv_heads):
+    """Attention without a cache on one rank's plain shards, from the
+    projections in to the one out: the queries of rows ``q_rows`` (first,
+    count; all when None) over the keys of every row of ``kv_x`` (``x``
+    itself when None), the heads that ``wq``'s columns hold over the range
+    ``kv_heads`` of kv heads in ``wk``/``wv`` (all their columns when
+    None). :func:`attn_apply`'s arithmetic, a slice of it."""
+    hd = cfg.hd
+    if kv_heads is not None:
+        wk, wv = (w[:, kv_heads.start * hd:kv_heads.stop * hd]
+                  for w in (wk, wv))
+    xq, pq, q_off = x, positions, 0
+    if q_rows is not None:
+        q_off, n = q_rows
+        xq, pq = x[:, q_off:q_off + n], positions[:, q_off:q_off + n]
+    cross = kv_x is not None
+    q, k, v = _project_qkv(xq, kv_x if cross else x, wq, wk, wv, cfg,
+                           cross=cross, use_rope=use_rope, q_positions=pq,
+                           kv_positions=positions)
+    out = _tiled(q, k, v, causal=causal and not cross, window=window,
+                 chunk_q=cfg.attn_chunk_q, q_offset=q_off)
+    return out.reshape(*out.shape[:2], -1) @ wo
+
+
+def _kv_heads_of(q_first: int, nq: int, hq: int, hkv: int
+                 ) -> Optional[range]:
+    """The kv heads that query heads ``[q_first, q_first + nq)`` read, where
+    each of them serves an equal run of those query heads (``_attend``'s
+    grouping); None where they do not."""
+    g = hq // hkv
+    idx = [h // g for h in range(q_first, q_first + nq)]
+    n = idx[-1] - idx[0] + 1
+    if nq % n == 0 and idx == [idx[0] + i // (nq // n) for i in range(nq)]:
+        return range(idx[0], idx[0] + n)
+    return None
+
+
+def _attn_stream(p: Params, x: torch.Tensor, kv_x: Optional[torch.Tensor],
+                 cfg: ArchConfig, positions: torch.Tensor, *, causal: bool,
+                 window: Optional[int], use_rope: bool) -> torch.Tensor:
+    """:func:`_attn_local` over the residual stream on a mesh, each rank
+    on its own shards: the heads over ``model`` where they divide it
+    (``wq``/``wk``/``wv`` column-parallel, ``wo`` row-parallel: the output
+    is Partial over ``model``); where the kv heads do not divide it (8 of
+    granite's on 16 ranks) each rank takes the whole ``wk``/``wv`` and
+    projects only the kv heads its query heads read. Where the query heads
+    do not split so (whisper-tiny's 6 on 4), each rank takes its share of
+    the query rows, over every key, with whole weights: the output is split
+    on rows."""
+    from torch.distributed.tensor import Partial, Replicate, Shard
+    from ..dist.sharding import (entering, model_coordinate, shard_call,
+                                 split_like, use_weight)
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    r, m = model_coordinate()
+    x = entering(x)
+    t = x.shape[1]
+    kv_split = m > 1 and hq % m == 0 and hkv % m == 0
+    kv_heads = (_kv_heads_of(r * hq // m, hq // m, hq, hkv)
+                if m > 1 and hq % m == 0 and not kv_split else None)
+    heads = kv_split or kv_heads is not None
+    rows = m > 1 and not heads and t % m == 0
+    fn = functools.partial(
+        _attn_local, cfg=cfg, causal=causal, window=window, use_rope=use_rope,
+        q_rows=(r * t // m, t // m) if rows else None, kv_heads=kv_heads)
+    model = Partial() if heads else Shard(1) if rows else Replicate()
+    kv_dim = 1 if kv_split else None
+    return shard_call(
+        lambda _, *a: fn(*a), split_like(x, model), x,
+        None if kv_x is None else entering(kv_x),
+        constrain(positions, ["batch"]),
+        use_weight(p["wq"], 1 if heads else None),
+        use_weight(p["wk"], kv_dim), use_weight(p["wv"], kv_dim),
+        use_weight(p["wo"], 0 if heads else None))
+
+
 def attn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
                positions: torch.Tensor,
                kv_x: Optional[torch.Tensor] = None,
@@ -375,12 +459,13 @@ def attn_apply(p: Params, x: torch.Tensor, cfg: ArchConfig, *,
     * cross-attn:  ``kv_x`` = encoder/image states, ``use_rope=False``,
       ``causal=False``; no cache is written
     """
+    if cache is None and in_stream(x):
+        return _attn_stream(p, x, kv_x, cfg, positions, causal=causal,
+                            window=window, use_rope=use_rope), None
     cross = kv_x is not None
-    q, k, v = _project_qkv(p, x, kv_x if cross else x, cfg)
-    if use_rope:
-        q = rope(q, positions, cfg.rope_theta)
-        if not cross:
-            k = rope(k, positions, cfg.rope_theta)
+    q, k, v = _project_qkv(x, kv_x if cross else x, p["wq"], p["wk"],
+                           p["wv"], cfg, cross=cross, use_rope=use_rope,
+                           q_positions=positions, kv_positions=positions)
 
     new_cache = None
     if cache is not None and not cross:

@@ -14,8 +14,9 @@ from typing import Any, Dict, Optional
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import (as_dtensor, constrain, current_mesh, is_dtensor,
-                             shard_call)
+from ..dist.sharding import (as_dtensor, constrain, current_mesh, entering,
+                             in_stream, is_dtensor, model_coordinate, shard_call,
+                             split_like, use_weight)
 
 Params = Dict[str, Any]
 
@@ -62,11 +63,14 @@ def rmsnorm_init(d: int, dtype, device) -> Params:
 
 
 def rmsnorm(p: Params, x: torch.Tensor, eps: float = 1e-5) -> torch.Tensor:
-    """RMSNorm computed in f32, returned in ``x``'s dtype."""
+    """RMSNorm computed in f32, returned in ``x``'s dtype. Over the
+    residual stream on a mesh the scale is taken whole (it is split on d
+    over ``model``), so the output keeps the stream's layout."""
+    scale = use_weight(p["scale"], None) if in_stream(x) else p["scale"]
     xf = x.float()
     var = xf.square().mean(dim=-1, keepdim=True)
     out = xf * torch.rsqrt(var + eps)
-    return (out * p["scale"].float()).to(x.dtype)
+    return (out * scale.float()).to(x.dtype)
 
 
 # ---------------------------------------------------------------------------
@@ -102,10 +106,28 @@ def mlp_init(gen, d: int, f: int, dtype, device) -> Params:
             "w_down": dense_init(gen, f, d, dtype, device)}
 
 
+def _swiglu(x, w_gate, w_up, w_down):
+    h = F.silu(x @ w_gate) * (x @ w_up)
+    return h @ w_down
+
+
 def mlp(p: Params, x: torch.Tensor) -> torch.Tensor:
-    """SwiGLU: ``(silu(x W_gate) * x W_up) W_down`` in ``x``'s dtype."""
-    h = F.silu(x @ p["w_gate"]) * (x @ p["w_up"])
-    return h @ p["w_down"]
+    """SwiGLU: ``(silu(x W_gate) * x W_up) W_down`` in ``x``'s dtype. Over
+    the residual stream on a mesh (``in_stream``) it runs on local shards
+    of the stream whole on T: ``w_gate`` and ``w_up`` split on f
+    (column-parallel), so the SiLU and the product need no collective, and
+    ``w_down`` on f (row-parallel), so the output is Partial over ``model``
+    until :func:`~repro_torch.dist.sharding.rejoin` reduces it."""
+    if not in_stream(x):
+        return _swiglu(x, p["w_gate"], p["w_up"], p["w_down"])
+    from torch.distributed.tensor import Partial, Replicate
+    _, m = model_coordinate()
+    split = m > 1 and p["w_gate"].shape[1] % m == 0
+    x = entering(x)
+    return shard_call(lambda _, *a: _swiglu(*a),
+                      split_like(x, Partial() if split else Replicate()),
+                      x, use_weight(p["w_gate"], 1), use_weight(p["w_up"], 1),
+                      use_weight(p["w_down"], 0))
 
 
 # ---------------------------------------------------------------------------

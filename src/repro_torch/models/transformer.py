@@ -42,7 +42,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..dist.sharding import constrain, current_mesh, whole_dim
+from ..dist.sharding import (constrain, current_mesh, in_stream, per_op,
+                             rejoin, shard_call, stream,
+                             use_weight, whole_dim)
 from ..tree import leaves, rebuild, tree_map
 from . import ssm
 from .attention import Index, KVCache, attn_apply, attn_init, init_kv_cache
@@ -221,19 +223,21 @@ def _apply_attn_mlp(pl: Params, x, cfg: ArchConfig, positions, *,
     h, _ = attn_apply(pl["attn"], rmsnorm(pl["ln1"], x, cfg.norm_eps), cfg,
                       positions=positions, causal=causal, window=window,
                       cache=cache, cache_index=cache_index)
-    x = x + h
+    x = x + rejoin(x, h)
     if cross_kv is not None:
         hc, _ = attn_apply(pl["cross"], rmsnorm(pl["ln_cross"], x,
                                                 cfg.norm_eps),
                            cfg, positions=positions, kv_x=cross_kv,
                            causal=False, use_rope=False)
-        x = x + hc
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+        x = x + rejoin(x, hc)
     if use_moe:
-        h2, aux = moe_apply(pl["moe"], rmsnorm(pl["ln2"], x, cfg.norm_eps), cfg)
-    else:
-        h2 = mlp(pl["mlp"], rmsnorm(pl["ln2"], x, cfg.norm_eps))
-    return x + h2, aux
+        xo = per_op(x)
+        h2, aux = moe_apply(pl["moe"], rmsnorm(pl["ln2"], xo, cfg.norm_eps),
+                            cfg)
+        return rejoin(x, xo + h2), aux
+    h2 = mlp(pl["mlp"], rmsnorm(pl["ln2"], x, cfg.norm_eps))
+    return x + rejoin(x, h2), torch.zeros((), dtype=torch.float32,
+                                          device=x.device)
 
 
 # the reference's jax.checkpoint policies: which outputs a rematerialised
@@ -317,14 +321,15 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
                 else fn(pl, x))[0]
 
     def recurrent(apply, pl, x, cache):
+        xo = per_op(x)
         if per_layer:
-            dx, new = checkpoint(apply, pl, x, cfg, use_reentrant=False)
+            dx, new = checkpoint(apply, pl, xo, cfg, use_reentrant=False)
         else:
-            dx, new = apply(pl, x, cfg, cache=cache)
+            dx, new = apply(pl, xo, cfg, cache=cache)
         if cache is not None:   # the new state into the stacked views
             for view, leaf in zip(cache, new):
                 view.copy_(leaf)
-        return x + dx
+        return rejoin(x, xo + dx)
 
     def super_block(x, i):
         """Super-block ``i`` over ``x``: (x', its aux loss or None)."""
@@ -376,8 +381,9 @@ def _encode(params: Params, cfg: ArchConfig, frames: torch.Tensor, *,
     """frames (B, T_enc, D), the stub frontend's embeddings -> the encoder's
     states after ``enc_norm`` (bidirectional self-attention layers, each
     rematerialised under ``cfg.remat_policy`` while autograd records, unless
-    ``remat`` is false, as in a prefill)."""
-    x = frames
+    ``remat`` is false, as in a prefill; a call with remat lays the frames
+    out as the residual stream)."""
+    x = stream(frames) if remat else frames
     positions = torch.arange(x.shape[1], device=x.device).expand(x.shape[:2])
     call = _rematerialiser(cfg, params["enc_blocks"], x) if remat else _direct
     enc = _unstack(params["enc_blocks"])
@@ -408,6 +414,10 @@ def _backbone(params: Params, cfg: ArchConfig, tokens: torch.Tensor, *,
     frames reads the encoder states from ``caches["enc_out"]``; one with
     frames encodes them and stores the result there."""
     x = embed(params["embed"], tokens)
+    if caches is None:
+        # a step that writes no cache lays its stream out once, Megatron's
+        # way; a cache's prefill and decode keep it as the embedding gives it
+        x = stream(x)
     t = tokens.shape[1]
     steps = torch.arange(t, device=tokens.device)
     base = cache_index if cache_index is not None else 0
@@ -466,11 +476,25 @@ CE_TILE_BYTES = 4 << 30   # the most f32 logits one chunk makes, at global shape
 def _ce_chunk(table: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor,
               tied: bool) -> Tuple[torch.Tensor, torch.Tensor]:
     """(sum of the masked NLL, count of labels >= 0) of one chunk."""
-    logits = unembed(table, h_c, tied=tied)              # (B, c, V) f32
+    w = table.t() if tied else table
+    logits = h_c.float() @ w.float()                     # (B, c, V) f32
     logp = torch.log_softmax(logits, dim=-1)
     nll = -logp.gather(-1, l_c.clamp_min(0)[..., None].long())[..., 0]
     mask = (l_c >= 0).float()
     return (nll * mask).sum(), mask.sum()
+
+
+def _ce_sums(h: torch.Tensor, table: torch.Tensor, labels: torch.Tensor,
+             tied: bool, c: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(sum of the masked NLL, count of labels >= 0) over (B, T) ``h``
+    and ``labels``, ``c`` positions at a time, each chunk recomputed in the
+    backward pass."""
+    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
+    for s in range(0, h.shape[1], c):
+        n, m = checkpoint(_ce_chunk, table, h[:, s:s + c], labels[:, s:s + c],
+                          tied, use_reentrant=False)
+        tot, cnt = tot + n, cnt + m
+    return tot, cnt
 
 
 def _chunked_ce(h: torch.Tensor, table: torch.Tensor, tied: bool,
@@ -481,17 +505,25 @@ def _chunked_ce(h: torch.Tensor, table: torch.Tensor, tied: bool,
     ``jax.checkpoint`` chunk body). A chunk has fewer positions where its
     logits would pass ``CE_TILE_BYTES`` (a train_4k batch of 256 rows: 256
     x 1024 x 51,865 f32 is 54 GB). The last chunk is ragged where the
-    reference pads it with masked positions, which add nothing. Under a
-    mesh the table is gathered once, not once a chunk."""
+    reference pads it with masked positions, which add nothing. Over the
+    stream on a mesh each rank takes its rows' share of the positions over
+    ``model`` (a slice of what it holds) against the whole table, and the
+    two sums are reduced once; otherwise the table is gathered whole once,
+    not once a chunk."""
     v = table.shape[0] if tied else table.shape[1]
     c = max(1, min(CE_CHUNK, h.shape[1],
                    CE_TILE_BYTES // (4 * h.shape[0] * v)))
-    table = constrain(table, [None, None])
-    tot = cnt = torch.zeros((), dtype=torch.float32, device=h.device)
-    for s in range(0, h.shape[1], c):
-        n, m = checkpoint(_ce_chunk, table, h[:, s:s + c], labels[:, s:s + c],
-                          tied, use_reentrant=False)
-        tot, cnt = tot + n, cnt + m
+    if not in_stream(h):
+        # outside a mesh, or a stream left as the embedding laid it out
+        tot, cnt = _ce_sums(h, constrain(table, [None, None]), labels, tied,
+                            c)
+    else:
+        from torch.distributed.tensor import Partial
+        labels = constrain(labels, ["batch", "model"])    # as h's rows
+        out = tuple(Partial() if p.is_shard() else p for p in h.placements)
+        tot, cnt = shard_call(
+            lambda _, *a: _ce_sums(*a, tied=tied, c=c), out, h,
+            use_weight(table, None), labels)
     return tot / cnt.clamp_min(1.0)
 
 

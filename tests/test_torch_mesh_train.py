@@ -4,11 +4,15 @@ Four processes (``torch.multiprocessing`` spawn, a file rendezvous under
 ``tmp_path``) form a (2, 2) ``("data", "model")`` mesh. Each places one
 seeded state with ``jit_train_step`` (profiles ``tp`` and ``fsdp_tp``, so
 params, ZeRO-1 moments and the batch are sharded over both axes) and runs
-one step; the whole params, gathered, and the metrics are held to one
+one step; the metrics and the first moments, gathered, are held to one
 plain ``make_train_step`` call on the same state and batch in this
 process, in f32: the loss, grad norm and lr within 1e-5 relative, every
-param leaf and every first-moment leaf (0.1 of the gradient) within 1e-5
-of its max |x| (the sums run in another order across ranks). Four
+first-moment leaf (0.1 of the gradient) within 1e-5 of its max |x| (the
+sums run in another order across ranks). The whole params are held, at
+the same bound, to the plain update of the gradients the mesh step gave
+``opt.update``, gathered: AdamW's first step moves a param by lr g / (|g|
++ eps), so a gradient within eps of zero (the dense case's ``wq`` holds
+one of -3.7e-8) turns its rounding into a tenth of lr. Four
 reduced configs: a dense arch, a MoE arch (tables and gathers batch-local
 through ``shard_map_batch``, experts over ``model``), the dense arch
 with one kv head, which takes the full-head form (k and v broadcast to
@@ -73,14 +77,15 @@ def rank_main(rank, init_file, out_dir):
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=WORLD, rank=rank,
                             timeout=datetime.timedelta(seconds=JOIN_S))
-    placed = []
+    placed, given = [], []
     update = opt.update
 
     def spy(ocfg, grads, state, params, **kw):
-        # each gradient's placements beside its moments'
+        # each gradient's placements beside its moments', and the gradients
         placed.append([(tuple(g.placements), tuple(m.placements))
                        for (_, g), (_, m) in zip(leaves(grads),
                                                  leaves(state.m))])
+        given.append(tree_map(lambda t: t.full_tensor(), grads))
         return update(ocfg, grads, state, params, **kw)
 
     opt.update = spy
@@ -100,7 +105,7 @@ def rank_main(rank, init_file, out_dir):
                     "params": tree_map(lambda t: t.full_tensor(), state.params),
                     "m": tree_map(lambda t: t.full_tensor(), state.opt.m),
                     "metrics": m, "held": held,
-                    "grad_placements": placed[-1]}
+                    "grad_placements": placed[-1], "grads": given[-1]}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         opt.update = update
@@ -150,8 +155,12 @@ def test_mesh_step_equals_the_plain_step(ranks, case, profile):
         for k in ("grad_norm", "lr", "total"):
             assert abs(float(r["metrics"][k]) - float(wm[k])) <= \
                 RTOL * abs(float(wm[k])), (rank, k)
-        # the first moments are 0.1 g: the gradients leaf by leaf
-        for got_tree, want_tree in ((r["params"], want.params),
+        # the first moments are 0.1 g: the gradients leaf by leaf; the
+        # params, the plain update of the mesh's own gradients
+        fresh = init(case)
+        moved, _, _ = opt.update(opt.OptConfig(**OCFG), r["grads"],
+                                 fresh.opt, fresh.params)
+        for got_tree, want_tree in ((r["params"], moved),
                                     (r["m"], want.opt.m)):
             g, w = leaves(got_tree), leaves(want_tree)
             assert [n for n, _ in g] == [n for n, _ in w]

@@ -96,3 +96,28 @@ def test_accounting_matches_the_reference(arch):
         assert got.keys() == want.keys()
         for k in want:
             assert abs(got[k] - want[k]) <= 1e-12 * abs(want[k]), (kind, k)
+
+
+def test_flops_are_counted_by_op_and_site():
+    """Two matmuls in a function of known site, then their gradients: the
+    forward pair under the function's name, the backward pair under the
+    autograd node that runs them."""
+    a = torch.randn(8, 16, requires_grad=True)
+    b, c = torch.randn(16, 32), torch.randn(32, 4)
+
+    def two_matmuls(a, b, c):
+        return (a @ b) @ c
+
+    def step():
+        two_matmuls(a, b, c).sum().backward()
+
+    cost = op_cost.analyze(step)
+    forward = 2 * 8 * 16 * 32 + 2 * 8 * 32 * 4
+    # d(a @ b) = g @ c.T, then d(a) = d(a @ b) @ b.T: b and c need no grad
+    backward = 2 * 8 * 4 * 32 + 2 * 8 * 32 * 16
+    sites = op_cost.flop_sites(cost)
+    assert sites == {
+        "mm @ test_torch_op_cost.py:two_matmuls": {"flops": forward,
+                                                   "count": 2},
+        "mm @ backward MmBackward0": {"flops": backward, "count": 2}}
+    assert cost.flops == forward + backward
