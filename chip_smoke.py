@@ -152,12 +152,18 @@ Phases, each of which exits non-zero on failure:
    (remat and the CE chunks recompute the forward), printed beside the
    counted-FLOPs and 6 N D shares of 989 TFLOP/s; (b) ``python -m
    repro_torch.launch.dryrun`` as rank 0 of whisper-tiny x train_4k on a
-   (4, 4) mesh and granite-3-8b x train_4k on the production (16, 16) mesh,
-   under a fake process group, each on the card (its own shards, random
-   values: peak memory, a warm step's time, op_cost's counts) and on meta
-   (counts only); the card's FLOPs must equal meta's, and a train cell's
-   may be at most 1.10 times one device's in the JAX reference's step
-   (``REFERENCE_RANK_FLOPS``); each cell prints its collective bytes by
+   (4, 4) mesh and, on the production (16, 16) mesh, granite-3-8b x
+   train_4k and the recurrent train cells, xlstm-1.3b x train_4k cut to 8
+   layers (7 mLSTM and 1 sLSTM) and zamba2-2.7b x train_4k cut to 6 (the
+   shared attention and 6 Mamba2 layers), each recurrent layer on its
+   rank's one row of the batch, under a fake process group, each on the card (its own
+   shards, random values: peak memory, a warm step's time, op_cost's
+   counts; two processes at once, each timing its step with the card to
+   itself) and on meta (counts only, run beside (a), (c) and (e)); the
+   card's FLOPs must equal meta's,
+   and a train cell's may be at most 1.10 times one device's in the JAX
+   reference's step (``REFERENCE_RANK_FLOPS``); each cell prints its
+   collective bytes by
    kind and the ten largest by the op that caused them, and its ten
    largest FLOP sites; granite's train cell may move no more collective
    bytes and peak no higher than the 671.0 GB and 26.6 GB it took while
@@ -231,8 +237,21 @@ def log(msg: str) -> None:
     print(msg, flush=True)
 
 
+# the dry runs this script started (start_dryrun)
+CHILDREN = []
+
+
+def stop_children() -> None:
+    """Kill the dry runs still running (after a failure)."""
+    for proc in CHILDREN:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+
+
 def fail(msg: str) -> None:
     print(f"FAIL: {msg}", file=sys.stderr, flush=True)
+    stop_children()
     sys.exit(1)
 
 
@@ -2801,10 +2820,15 @@ def deep_train_path(torch, np, workdir):
 # -- phase 8: the mesh tooling ----------------------------------------------------
 
 # one rank of each cell on the card under a fake process group: whisper-tiny
-# on the (4, 4) mesh the reference's smoke test compiles, granite-3-8b on
-# the production (16, 16) mesh
-MESH_CELLS = (("whisper-tiny", "train_4k", "4x4"),
+# on the (4, 4) mesh the reference's smoke test compiles, granite-3-8b and
+# the recurrent families on the production (16, 16) mesh; "<arch>@<L>" is
+# the arch cut to L layers (the dry run's --layers), one super-block each of
+# xlstm (7 mLSTM + 1 sLSTM) and zamba2 (shared attention + 6 Mamba2), the
+# time limit
+MESH_CELLS = (("xlstm-1.3b@8", "train_4k", "single"),    # the longest first
+              ("whisper-tiny", "train_4k", "4x4"),
               ("granite-3-8b", "train_4k", "single"),
+              ("zamba2-2.7b@6", "train_4k", "single"),
               # 8d: the serving cells, decode on a cache split on seq (the
               # flash-decode combine), MoE at T = 1 over a ring cache, and
               # the hybrid's heads-split caches beside its Mamba2 states
@@ -2813,13 +2837,16 @@ MESH_CELLS = (("whisper-tiny", "train_4k", "4x4"),
               ("zamba2-2.7b", "long_500k", "single"))
 FLOPS_RATIO = (1.0, 2.0)   # 8c: counted FLOPs over model_flops core + attention
 DRYRUN_S = 600
+CARD_RUNS = 2      # 8b's dry runs on the card at once
 # 8b: one device's FLOPs in the JAX reference's step of each train cell, from
 # tools/reference_rank_flops.py (repro.analysis.hlo_cost of the step XLA
-# compiles for host CPU devices, Auto mesh axes; jax 0.9.0). A rank of the
-# port may count at most SHARE_LIMIT times as many.
+# compiles for host CPU devices, Auto mesh axes; jax 0.9.0; --layers for a
+# cut arch). A rank of the port may count at most SHARE_LIMIT times as many.
 REFERENCE_RANK_FLOPS = {
     ("whisper-tiny", "train_4k", "4x4"): 34330411794432.0,
-    ("granite-3-8b", "train_4k", "single"): 294532079943680.0}
+    ("granite-3-8b", "train_4k", "single"): 294532079943680.0,
+    ("xlstm-1.3b@8", "train_4k", "single"): 13659271069696.0,
+    ("zamba2-2.7b@6", "train_4k", "single"): 14922326999040.0}
 SHARE_LIMIT = 1.10
 # granite-3-8b x train_4k, rank 0 of (16, 16) on the H100 while each op chose
 # its own layout (the stream split on d): the stream's layout may not move
@@ -2837,45 +2864,68 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def dryrun_cells(workdir):
-    """8b: each cell as rank 0 of its mesh, on the card and on meta, one
-    process each (the two cards' runs one after the other, the meta runs
-    beside them). Returns {cell: {device: record}}."""
-    env = dict(os.environ, PYTHONPATH=str(SRC))
-
-    def start(cell, device):
-        arch, shape, mesh = cell
-        log_f = open(workdir / f"{arch}_{mesh}_{device}.log", "w")
-        proc = subprocess.Popen(
-            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch,
-             "--shape", shape, "--mesh", mesh, "--device", device, "--out",
-             str(workdir), "--force"], env=env, stdout=log_f,
-            stderr=subprocess.STDOUT, cwd=str(ROOT))
-        return proc, log_f
-
-    def finish(cell, device, job):
-        proc, log_f = job
-        try:
-            proc.wait(timeout=DRYRUN_S)
-        except subprocess.TimeoutExpired:
-            proc.kill()
-            proc.wait()
-        log_f.close()
-        arch, shape, mesh = cell
-        rec_path = workdir / f"{arch}__{shape}__{mesh}__{device}.json"
-        text = (workdir / f"{arch}_{mesh}_{device}.log").read_text()
-        if proc.returncode != 0 or not rec_path.exists():
-            fail(f"dry run {cell} on {device}: exit {proc.returncode}\n"
-                 f"{text[-3000:]}")
-        return json.loads(rec_path.read_text())
-
+def dryrun_cells(workdir, metas):
+    """8b: each cell as rank 0 of its mesh on the card, one process each,
+    CARD_RUNS of them at once: they build their cells and count a step
+    side by side, and each times its step with the card to itself (the dry
+    run's ``--lock``); and the same cells on meta, which
+    :func:`start_dryrun` started beside 8a. Returns {cell: {device:
+    record}}."""
+    lock = workdir / "card.lock"
     out = {cell: {} for cell in MESH_CELLS}
-    metas = {cell: start(cell, "meta") for cell in MESH_CELLS}
-    for cell in MESH_CELLS:
-        out[cell]["cuda"] = finish(cell, "cuda", start(cell, "cuda"))
-    for cell, job in metas.items():
-        out[cell]["meta"] = finish(cell, "meta", job)
+    pending = list(MESH_CELLS)
+    jobs = {(cell, "meta"): job for cell, job in metas.items()}
+    while pending or jobs:
+        while pending and sum(d == "cuda" for _, d in jobs) < CARD_RUNS:
+            cell = pending.pop(0)
+            jobs[cell, "cuda"] = start_dryrun(workdir, cell, "cuda", lock)
+        done = [key for key, (proc, _, t0) in jobs.items()
+                if proc.poll() is not None
+                or time.perf_counter() - t0 > DRYRUN_S]
+        for cell, device in done:
+            out[cell][device] = finish_dryrun(workdir, cell, device,
+                                              jobs.pop((cell, device)))
+        if not done:
+            time.sleep(0.2)
     return out
+
+
+def start_dryrun(workdir, cell, device, lock=None):
+    """Start ``python -m repro_torch.launch.dryrun`` for one cell of
+    MESH_CELLS ("<arch>@<L>" cut to L layers) on ``device``."""
+    arch, shape, mesh = cell
+    base, _, layers = arch.partition("@")
+    log_f = open(workdir / f"{arch}_{mesh}_{device}.log", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", base,
+         "--layers", layers or "0", "--shape", shape, "--mesh", mesh,
+         "--device", device, "--out", str(workdir), "--force"]
+        + (["--lock", str(lock)] if lock else []),
+        env=dict(os.environ, PYTHONPATH=str(SRC)), stdout=log_f,
+        stderr=subprocess.STDOUT, cwd=str(ROOT))
+    CHILDREN.append(proc)
+    return proc, log_f, time.perf_counter()
+
+
+def finish_dryrun(workdir, cell, device, job):
+    """Wait for a dry run that :func:`start_dryrun` started (at most
+    DRYRUN_S) and return its record; fail where it has none."""
+    proc, log_f, t0 = job
+    try:
+        proc.wait(timeout=max(0.0, DRYRUN_S - (time.perf_counter() - t0)))
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+    log_f.close()
+    log(f"[dryrun {' x '.join(cell)}] {device} process done "
+        f"{time.perf_counter() - t0!r} s after its start")
+    arch, shape, mesh = cell
+    rec_path = workdir / f"{arch}__{shape}__{mesh}__{device}.json"
+    text = (workdir / f"{arch}_{mesh}_{device}.log").read_text()
+    if proc.returncode != 0 or not rec_path.exists():
+        fail(f"dry run {cell} on {device}: exit {proc.returncode}\n"
+             f"{text[-3000:]}")
+    return json.loads(rec_path.read_text())
 
 
 def kv_shard_bytes(arch, shape, mesh_name):
@@ -2994,6 +3044,8 @@ def mesh_path(torch, np, layers, workdir):
              "labels": torch.as_tensor(lab).to(dev)}
     reset_counts(kern)
     t_phase = time.perf_counter()
+    # 8b's meta counts need no card: they run beside 8a, 8c and 8e
+    metas = {cell: start_dryrun(workdir, cell, "meta") for cell in MESH_CELLS}
     dist.init_process_group("nccl", init_method=f"tcp://localhost:{free_port()}",
                             rank=0, world_size=1)
     try:
@@ -3073,7 +3125,7 @@ def mesh_path(torch, np, layers, workdir):
     torch.cuda.empty_cache()
 
     # 8b: one rank of each cell on the card, and the same cell on meta
-    records = dryrun_cells(workdir)
+    records = dryrun_cells(workdir, metas)
     for cell, recs in records.items():
         name = " x ".join(cell)
         for device, r in recs.items():
@@ -3243,6 +3295,7 @@ def main() -> int:
     try:
         paths["mesh"] = mesh_path(torch, np, args.layers, workdir)
     finally:
+        stop_children()
         shutil.rmtree(workdir, ignore_errors=True)
 
     # 9. report

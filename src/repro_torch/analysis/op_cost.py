@@ -14,7 +14,8 @@ this process executes on plain tensors, forward and backward:
 * bytes: the operands plus the results of every op that is not a view or
   an allocation: an upper bound, since nothing is fused;
 * collective bytes (the output of each collective) and counts, by kind:
-  ``all_gather``, ``all_reduce``, ``reduce_scatter``, ``all_to_all``; and
+  ``all_gather``, ``all_reduce``, ``reduce_scatter``, ``all_to_all`` (DTensor's
+  ``shard_dim_alltoall`` too, which moves a shard between dims); and
   by kind, the same again by what caused each one, ``"<op> @ <site>"``:
   the aten op whose DTensor dispatch redistributed its inputs (or
   ``redistribute`` for an explicit one, ``collective`` for one the code
@@ -136,9 +137,16 @@ def _site() -> Tuple[bool, str]:
     return explicit, site or outside or "backward"
 
 
+# the namespaces of collective ops: the functional ones, c10d's, and
+# DTensor's own all-to-all (a shard moved from one dim to another over a
+# mesh dim, on CUDA)
+_COLLECTIVES = ("_c10d_functional", "c10d", "_dtensor")
+
+
 def _kind(name: str):
-    # functional names (all_gather_into_tensor) and c10d's (allgather_,
-    # alltoall_base_, reduce_scatter_tensor_coalesced)
+    # functional names (all_gather_into_tensor), c10d's (allgather_,
+    # alltoall_base_, reduce_scatter_tensor_coalesced) and DTensor's
+    # (shard_dim_alltoall)
     flat = name.replace("_", "")
     return next((k for k in KINDS if k.replace("_", "") in flat), None)
 
@@ -178,8 +186,7 @@ class _Counter(TorchDispatchMode):
             entry = self.cost.flops_by_op.setdefault(key, [0.0, 0])
             entry[0] += flops
             entry[1] += 1
-        kind = _kind(name) if func.namespace in ("_c10d_functional", "c10d") \
-            else None
+        kind = _kind(name) if func.namespace in _COLLECTIVES else None
         if kind is not None:
             c = self.cost
             n = _nbytes(out)

@@ -24,8 +24,13 @@ One place decides how every tensor lays out over the mesh:
   the sequence over ``model``, whole on d); ``entering(x)`` and
   ``use_weight(w, dim)`` lay a sub-layer's input and weights out over it:
   column-parallel in, row-parallel out (Megatron-LM's), each weight moved
-  to where the layer uses it; ``per_op(x)`` hands MoE and recurrent
-  sub-layers the stream split on d, where their ops lay themselves out.
+  to where the layer uses it; ``entering(x, rows=True)`` lays it out for a
+  recurrent sub-layer that runs whole on each rank's rows (the batch over
+  the data axes and ``model`` together, as far as the rows divide; where
+  ``model`` holds a data rank's rows whole, ``shard_call(..., rows=True)``
+  runs each rank on its part of them);
+  ``per_op(x)`` hands MoE sub-layers the stream split on d, where their
+  ops lay themselves out.
 
 Three helpers run a function on plain local shards, one case each:
 
@@ -38,8 +43,10 @@ Three helpers run a function on plain local shards, one case each:
 * ``shard_call(fn, out_placements, *args)``: each arg's shard as it lies,
   with the rank's offset along every split dim, the outputs in the
   placements the caller names: the layers over the stream (their
-  gradients Partial where the outputs split the work), the KV cache's
-  writes and the flash-decode combine over a cache split on seq.
+  gradients Partial where the outputs split the work; a recurrent
+  sub-layer on its rank's rows or its part of them, weights whole), the
+  KV cache's writes and the flash-decode combine over a cache split on
+  seq.
 
 A :class:`NamedSharding` keeps the reference's per-dim spec (a tuple of
 ``None``, an axis name or a tuple of axis names, as ``PartitionSpec``
@@ -298,7 +305,8 @@ def shard_spans(x: torch.Tensor) -> dict:
     return spans
 
 
-def shard_call(fn, out_placements: Optional[Sequence[Any]], *args):
+def shard_call(fn, out_placements: Optional[Sequence[Any]], *args,
+               rows: bool = False):
     """Run ``fn(spans, *shards)`` on each DTensor argument's local shard as
     it lies, with no redistribution (lay the arguments out first:
     :func:`entering`, :func:`use_weight`; a KV cache stays where it is):
@@ -312,18 +320,35 @@ def shard_call(fn, out_placements: Optional[Sequence[Any]], *args):
     no ambient mesh (the plain code) and must compute each output shard
     from its rank's shards alone; where it needs other ranks' shards it
     runs the collectives itself. Plain tensors among ``args`` pass as they
-    are."""
+    are. With ``rows`` the first argument is a batch laid out by
+    :func:`entering` with ``rows`` and ``fn`` returns one tensor of its
+    rows: where ``model`` holds them whole and they cut into parts
+    (:func:`_row_parts`), each rank runs ``fn`` on its part alone (``spans``
+    still those of the whole shards), the parts are gathered whole over
+    ``model``, and ``model`` splits the work."""
     from torch.distributed.tensor import DTensor, Partial
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
     splits = [out_placements is not None and not p.is_replicate()
               for p in (out_placements or (None,) * mesh.ndim)]
+    parts = _row_parts(args[0]) if rows else 1
+    if parts > 1:
+        dim = mesh.mesh_dim_names.index(MODEL)
+        share = mesh.size(dim) // parts
+        part = mesh.get_coordinate()[dim] // share
+        splits[dim] = True
     spans = [shard_spans(a) for a in args]
     local = [a.to_local(grad_placements=tuple(
                  Partial() if s and p.is_replicate() else p
                  for s, p in zip(splits, a.placements)))
              if isinstance(a, DTensor) else a for a in args]
     with use_mesh(None):
-        out = fn(spans, *local)
+        if parts > 1:
+            n = local[0].shape[0] // parts
+            out = _GatherParts.apply(
+                fn(spans, local[0][part * n:(part + 1) * n], *local[1:]),
+                mesh, dim, part, share)
+        else:
+            out = fn(spans, *local)
     if out is None:
         return None
     return rebuild(out, iter([
@@ -406,19 +431,78 @@ class _ReducedGrad(torch.autograd.Function):
         return g.redistribute(g.device_mesh, ctx.placements)
 
 
-def entering(x: torch.Tensor) -> torch.Tensor:
+def _row_axes(mesh: Any, rows: int) -> tuple:
+    """The longest major-first run of the data axes and ``model`` whose
+    size divides ``rows``: what a recurrent sub-layer's batch splits over
+    (the rest of the mesh holds it whole: see :func:`_row_parts`)."""
+    axes = batch_axes(mesh) + ((MODEL,) if MODEL in mesh.mesh_dim_names
+                               else ())
+    while axes and rows % _axes_size(mesh, axes):
+        axes = axes[:-1]
+    return axes
+
+
+def _row_parts(x: torch.Tensor) -> int:
+    """Into how many parts a recurrent sub-layer cuts each rank's rows of
+    DTensor ``x`` (laid out by :func:`entering` with ``rows``): where the
+    data axes split the rows and ``model`` does not, the largest divisor
+    of ``model``'s size that divides a data rank's rows (a multi-pod (2,
+    16, 16) mesh's train_4k batch: 8 rows a data rank, 8 parts of one row,
+    each run by 2 of the 16 ``model`` ranks); 1 otherwise."""
+    mesh = x.device_mesh
+    data = batch_axes(mesh)
+    if _row_axes(mesh, x.shape[0]) != data or MODEL not in \
+            mesh.mesh_dim_names:
+        return 1
+    rows, m = x.shape[0] // _axes_size(mesh, data), mesh_sizes(mesh)[MODEL]
+    return max(k for k in range(1, m + 1) if m % k == 0 and rows % k == 0)
+
+
+class _GatherParts(torch.autograd.Function):
+    """This rank's output ``y`` of part ``part`` of the rows (``share``
+    ranks in a row along mesh dim ``dim`` run each part) -> every part,
+    gathered whole over the dim in order (one all-gather, each part taken
+    from the first of its ranks). Backward: the rank's part of the
+    gradient over ``share``, since each of its ranks hands that part on and
+    the arguments' gradients sum over the dim (Partial there)."""
+
+    @staticmethod
+    def forward(ctx, y, mesh, dim, part, share):
+        import torch.distributed as dist
+        ctx.n, ctx.part, ctx.share = y.shape[0], part, share
+        out = y.new_empty((mesh.size(dim) * y.shape[0],) + y.shape[1:])
+        # all_gather_into_tensor's newer name, where torch has it
+        gather = getattr(dist, "all_gather_single",
+                         dist.all_gather_into_tensor)
+        gather(out, y.contiguous(), group=mesh.get_group(dim))
+        return out.unflatten(0, (mesh.size(dim), -1))[::share].flatten(0, 1)
+
+    @staticmethod
+    def backward(ctx, g):
+        n = ctx.n
+        return (g[ctx.part * n:(ctx.part + 1) * n] / ctx.share, None, None,
+                None, None)
+
+
+def entering(x: torch.Tensor, rows: bool = False) -> torch.Tensor:
     """DTensor ``x`` (the stream, or a cross-attention's states) entering a
     sub-layer that runs on local shards: its batch over the data axes,
     whole on every other dim (a sequence split over ``model`` is gathered).
-    Its gradient, Partial over the mesh dims that split the sub-layer, is
-    reduced right here to ``x``'s own layout (reduce-scattered onto a split
-    sequence), so the backward pass of the norm before it runs on the whole
-    gradient, as the plain code's does, whatever DTensor's rules would
-    choose. ``x`` itself when it is not a DTensor."""
+    With ``rows`` its batch splits over the data axes and ``model``
+    together, major first, as far as the rows divide (:func:`_row_axes`),
+    for a sub-layer that runs whole on each rank's rows (a recurrent scan
+    over T: the sequence moves to the rows by one all-to-all over
+    ``model``, and back in the backward pass). Its gradient, Partial over
+    the mesh dims that split the sub-layer, is reduced right here to
+    ``x``'s own layout (reduce-scattered onto a split sequence), so the
+    backward pass of the norm before it runs on the whole gradient, as the
+    plain code's does, whatever DTensor's rules would choose. ``x`` itself
+    when it is not a DTensor."""
     if not is_dtensor(x):
         return x
     mesh = x.device_mesh
-    whole = NamedSharding(mesh, _resolve_spec(x.shape, ("batch",),
+    axes = (_row_axes(mesh, x.shape[0]),) if rows else ("batch",)
+    whole = NamedSharding(mesh, _resolve_spec(x.shape, axes,
                                               mesh)).placements
     if tuple(x.placements) != whole:
         return x.redistribute(mesh, whole)
@@ -427,8 +511,8 @@ def entering(x: torch.Tensor) -> torch.Tensor:
 
 def per_op(x: torch.Tensor) -> torch.Tensor:
     """The stream ``x`` laid out for a sub-layer whose ops lay themselves
-    out (MoE's tables and experts, a recurrent scan over T): the batch over
-    the data axes, d over ``model``, as the embedding gives a stream that
+    out (MoE's tables and experts): the batch over the data axes, d over
+    ``model``, as the embedding gives a stream that
     does not take the stream's layout, so those ops, their residual add
     (:func:`rejoin`) and their gradients lay themselves out as they do
     there; ``x`` itself when it is not in the stream's layout."""

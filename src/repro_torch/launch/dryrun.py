@@ -33,8 +33,11 @@ Usage:
       --shape train_4k --mesh 4x4 --device meta
 
 ``--mesh`` also takes a shape, ``4x4`` (data x model) or ``2x4x4`` (pod x
-data x model). Each cell runs in its own process (``--all`` starts one
-per cell), since a process holds one process group.
+data x model). ``--layers N`` cuts each arch to N layers, widths kept,
+registered as ``<arch>@<N>`` (as ``tools/reference_rank_flops.py`` names
+the reference's, so the two count the same cell). Each cell runs in its
+own process (``--all`` starts one per cell), since a process holds one
+process group.
 """
 
 from __future__ import annotations
@@ -91,17 +94,52 @@ def _local_bytes(tree: Any) -> int:
                for _, x in leaves(tree))
 
 
+def at_depth(arch: str, layers: int) -> str:
+    """The name of ``arch`` cut to ``layers`` layers (registered as
+    ``<arch>@<layers>``, widths kept); ``arch`` itself for 0."""
+    if not layers:
+        return arch
+    from ..models import config as config_mod
+    name = f"{arch}@{layers}"
+    config_mod.register_arch(dataclasses.replace(
+        config_mod.get_arch(arch), name=name, n_layers=layers))
+    return name
+
+
+@contextlib.contextmanager
+def _holding(path: str, shared: bool = False) -> Iterator[None]:
+    """A lock on the file ``path`` while the block runs, exclusive or
+    ``shared`` (none where ``path`` is empty)."""
+    if not path:
+        yield
+        return
+    import fcntl
+    with open(path, "a") as f:
+        fcntl.flock(f, fcntl.LOCK_SH if shared else fcntl.LOCK_EX)
+        try:
+            yield
+        finally:
+            fcntl.flock(f, fcntl.LOCK_UN)
+
+
 def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str, *,
              force: bool = False, profile: str = None, tag: str = "",
-             remat: str = None, device: str = "cuda") -> Dict[str, Any]:
+             remat: str = None, device: str = "cuda",
+             layers: int = 0, lock: str = "") -> Dict[str, Any]:
     """Run one cell as rank 0 of ``mesh_name`` on ``device`` and write its
-    record; an existing record is returned unless ``force``."""
+    record (``arch`` cut to ``layers`` layers where that is not 0); an
+    existing record is returned unless ``force``. With ``lock`` (a file)
+    the cell is built and its counted step run under the file's shared
+    lock, and its timed step under the exclusive one: dry runs started side
+    by side build and count together, and each times its step with the
+    card to itself."""
     import torch
     from ..analysis import accounting, op_cost
     from ..models import config as config_mod
     from . import specs
     from .mesh import make_mesh
 
+    arch = at_depth(arch, layers)
     name = f"{arch}__{shape}__{mesh_name}__{device}" + (f"__{tag}" if tag else "")
     path = os.path.join(out_dir, name + ".json")
     if os.path.exists(path) and not force:
@@ -128,24 +166,29 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str, *,
                 kw["remat_policy"] = remat
             cfg = dataclasses.replace(cfg, **kw)
             config_mod._REGISTRY[arch] = cfg
+        if on_card:
+            torch.cuda.init()
         with fake_group(math.prod(dims)):
             mesh = make_mesh(dims, axes,
                              device_type="cuda" if on_card else "cpu")
             gen = (torch.Generator(device=device).manual_seed(0)
                    if on_card else None)
-            cell = specs.make_cell(arch, shape, mesh, device=device, gen=gen)
-            arg_bytes, note = _local_bytes(cell.args), cell.note
             # step 1 counted (it also fills DTensor's sharding caches),
             # step 2 timed; a train step updates its state in place
-            corrected = op_cost.analyze(cell.fn, *cell.args)
-            if on_card:
-                torch.cuda.synchronize()
-                torch.cuda.reset_peak_memory_stats()
-            t0 = time.perf_counter()
-            out = cell.fn(*cell.args)
-            if on_card:
-                torch.cuda.synchronize()
-            step_s = time.perf_counter() - t0 if on_card else None
+            with _holding(lock, shared=True):
+                cell = specs.make_cell(arch, shape, mesh, device=device,
+                                       gen=gen)
+                arg_bytes, note = _local_bytes(cell.args), cell.note
+                corrected = op_cost.analyze(cell.fn, *cell.args)
+            with _holding(lock):
+                if on_card:
+                    torch.cuda.synchronize()
+                    torch.cuda.reset_peak_memory_stats()
+                t0 = time.perf_counter()
+                out = cell.fn(*cell.args)
+                if on_card:
+                    torch.cuda.synchronize()
+                step_s = time.perf_counter() - t0 if on_card else None
             mem = {"argument_size_in_bytes": arg_bytes}
             if on_card:
                 mem["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
@@ -208,6 +251,13 @@ def main() -> None:
     ap.add_argument("--out", default=os.path.abspath(ARTIFACT_DIR))
     ap.add_argument("--device", default="cuda",
                     help="cuda (one rank's shards on the card) or meta")
+    ap.add_argument("--layers", type=int, default=0,
+                    help="depth to cut each arch to (0: published)")
+    ap.add_argument("--lock", default="",
+                    help="a file whose lock the cell holds, shared while it "
+                         "builds and counts, exclusive while it times its "
+                         "step (runs started side by side then time theirs "
+                         "one at a time)")
     args = ap.parse_args()
 
     from ..models.config import list_archs
@@ -220,7 +270,7 @@ def main() -> None:
     if len(cells) == 1:
         r = run_cell(*cells[0], args.out, force=args.force,
                      profile=args.profile, tag=args.tag, remat=args.remat,
-                     device=args.device)
+                     device=args.device, layers=args.layers, lock=args.lock)
         print(f"== {' × '.join(cells[0])}: {r['status']}")
         raise SystemExit(0 if r["status"] != "error" else 1)
 
@@ -228,15 +278,16 @@ def main() -> None:
     for arch, shape, mesh in cells:
         cmd = [sys.executable, "-m", "repro_torch.launch.dryrun",
                "--arch", arch, "--shape", shape, "--mesh", mesh,
-               "--out", args.out, "--device", args.device, "--tag", args.tag]
+               "--out", args.out, "--device", args.device, "--tag", args.tag,
+               "--layers", str(args.layers)]
         for flag, val in (("--profile", args.profile), ("--remat", args.remat)):
             if val:
                 cmd += [flag, val]
         if args.force:
             cmd.append("--force")
         subprocess.run(cmd, check=False)
-        name = f"{arch}__{shape}__{mesh}__{args.device}" + (
-            f"__{args.tag}" if args.tag else "")
+        name = "__".join([at_depth(arch, args.layers), shape, mesh,
+                          args.device] + ([args.tag] if args.tag else []))
         with open(os.path.join(args.out, name + ".json")) as f:
             results.append(json.load(f))
     n_ok = sum(r["status"] == "ok" for r in results)

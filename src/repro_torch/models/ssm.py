@@ -28,7 +28,6 @@ from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
-from torch.utils.checkpoint import checkpoint
 
 from ..dist.sharding import (current_mesh, is_dtensor, local_call, meet,
                              shard_map_batch, whole_dim)
@@ -392,30 +391,6 @@ def _slstm_scan(p, cfg, pre, state: SLSTMCache
     return torch.stack(hs, dim=1), state
 
 
-def _slstm_scan_in_chunks(p, cfg, pre, state: SLSTMCache, chunk: int
-                          ) -> Tuple[torch.Tensor, SLSTMCache]:
-    """:func:`_slstm_scan` over ``chunk`` tokens at a time, each chunk
-    recomputed in the backward pass while autograd records: the per-token
-    activations of one chunk, not of the whole sequence, are held at once
-    (a mesh rank's 16 rows of a train_4k batch held ~6 MB a token, past
-    80 GB over 4,096 tokens)."""
-    if not (torch.is_grad_enabled()
-            and (pre.requires_grad or p["r"].requires_grad)):
-        return _slstm_scan(p, cfg, pre, state)
-
-    def part(pre_c, r, *st):
-        hs, st = _slstm_scan(dict(p, r=r), cfg, pre_c, SLSTMCache(*st))
-        return (hs, *st)
-
-    hs = []
-    for s0 in range(0, pre.shape[1], chunk):
-        h_c, *st = checkpoint(part, pre[:, s0:s0 + chunk], p["r"], *state,
-                              use_reentrant=False)
-        state = SLSTMCache(*st)
-        hs.append(h_c)
-    return torch.cat(hs, dim=1), state
-
-
 def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
                 cache: Optional[SLSTMCache] = None
                 ) -> Tuple[torch.Tensor, Optional[SLSTMCache]]:
@@ -435,8 +410,8 @@ def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
         # the token loop on each rank's rows as plain tensors: thousands of
         # small ops, each of which DTensor would dispatch (minutes a layer)
         hs, state = shard_map_batch(
-            lambda pre, c, n, h, r: _slstm_scan_in_chunks(
-                dict(p, r=r), cfg, pre, SLSTMCache(c, n, h), cfg.ssm_chunk),
+            lambda pre, c, n, h, r: _slstm_scan(
+                dict(p, r=r), cfg, pre, SLSTMCache(c, n, h)),
             pre, *state, whole=(p["r"],))
     y = rmsnorm(p["out_norm"], hs.to(x.dtype), cfg.norm_eps)
     out = y @ p["w_out"]

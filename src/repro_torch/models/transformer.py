@@ -42,9 +42,9 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
-from ..dist.sharding import (constrain, current_mesh, in_stream, per_op,
-                             rejoin, shard_call, stream,
-                             use_weight, whole_dim)
+from ..dist.sharding import (constrain, entering, in_stream, per_op,
+                             rejoin, shard_call, stream, use_weight,
+                             whole_dim)
 from ..tree import leaves, rebuild, tree_map
 from . import ssm
 from .attention import Index, KVCache, attn_apply, attn_init, init_kv_cache
@@ -305,31 +305,24 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
     def cache_at(key, *idx):
         return _at(caches[key], *idx) if use_cache else None
 
-    # under a mesh a rank holds whole the activations DTensor cannot split
-    # (xlstm's 4 heads on 16 ranks: 1 GB f32 tensors a layer), and the
-    # recompute of a several-layer super-block held all its layers' at once
-    # (past 80 GB for a rank of xlstm-1.3b x train_4k): there each layer of
-    # such a super-block is recomputed on its own as well
-    per_layer = (nested and call is not _direct and current_mesh() is not None
-                 and cfg.remat_policy == "nothing_saveable")
-
     def attn_mlp(pl, x, cache, **kw):
-        fn = functools.partial(_apply_attn_mlp, cfg=cfg, positions=positions,
-                               use_moe=False, cache=cache,
-                               cache_index=cache_index, **kw)
-        return (checkpoint(fn, pl, x, use_reentrant=False) if per_layer
-                else fn(pl, x))[0]
+        return _apply_attn_mlp(pl, x, cfg, positions, use_moe=False,
+                               cache=cache, cache_index=cache_index, **kw)[0]
 
     def recurrent(apply, pl, x, cache):
-        xo = per_op(x)
-        if per_layer:
-            dx, new = checkpoint(apply, pl, xo, cfg, use_reentrant=False)
-        else:
-            dx, new = apply(pl, xo, cfg, cache=cache)
+        if in_stream(x):
+            # the plain layer on each rank's rows, its weights whole
+            flat = [use_weight(w, None) for _, w in leaves(pl)]
+            xr = entering(x, rows=True)
+            dx = shard_call(
+                lambda _, xl, *ws: apply(rebuild(pl, iter(ws)), xl, cfg)[0],
+                xr.placements, xr, *flat, rows=True)
+            return x + rejoin(x, dx)
+        dx, new = apply(pl, x, cfg, cache=cache)
         if cache is not None:   # the new state into the stacked views
             for view, leaf in zip(cache, new):
                 view.copy_(leaf)
-        return rejoin(x, xo + dx)
+        return x + dx
 
     def super_block(x, i):
         """Super-block ``i`` over ``x``: (x', its aux loss or None)."""

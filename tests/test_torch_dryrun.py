@@ -8,7 +8,10 @@ than 1e8 bytes and some collective bytes. Without ``--device`` the run is
 on the card, so on a host without one it fails and records the error; a
 cell the skip rules rule out records ``skipped``. Two serving cells run
 on the same small mesh on meta: decode from a cache split over it, each
-record with its collectives by the op that caused them.
+record with its collectives by the op that caused them. ``--layers 2``
+cuts granite-3-8b's train cell to 2 layers. ``--lock``'s exclusive file lock keeps a
+second holder waiting until the first lets go; its shared lock lets a
+second shared holder in.
 """
 
 import json
@@ -82,6 +85,26 @@ def test_a_decode_cell_runs_on_a_small_mesh(tmp_path, arch, shape):
     assert big["bytes"] < rows * positions * heads * hd * 2, big
 
 
+def test_a_cell_cut_to_two_layers_counts_less(tmp_path):
+    """``--layers 2`` runs granite-3-8b x train_4k on meta as
+    ``granite-3-8b@2`` (published widths): its record counts the cut
+    depth's work, 6 N D of the 2-layer model over the 16 ranks within
+    twice (attention and recompute come on top), well under a twentieth
+    of the 40 layers'."""
+    out = _run(tmp_path, "--device", "meta", "--layers", "2",
+               cell=["--arch", "granite-3-8b", "--shape", "train_4k",
+                     "--mesh", "4x4"])
+    assert out.returncode == 0, out.stderr[-3000:]
+    rec = json.loads((tmp_path / "granite-3-8b@2__train_4k__4x4__meta.json")
+                     .read_text())
+    assert rec["status"] == "ok", rec.get("traceback")
+    assert rec["arch"] == "granite-3-8b@2"
+    flops, model = rec["corrected"]["flops"], rec["analytic"]["model_flops"]
+    assert 1.0 <= flops * 16 / model <= 2.0, (flops, model)
+    # embedding and unembedding aside, 2 of 40 layers
+    assert model < 0.2 * 6 * 8.2e9 * 256 * 4096, model
+
+
 def test_dryrun_defaults_to_the_card(tmp_path):
     out = _run(tmp_path)
     assert out.returncode != 0
@@ -95,3 +118,26 @@ def test_a_ruled_out_cell_is_skipped(tmp_path):
     assert rec["status"] == "skipped" and "sub-quadratic" in rec["reason"]
     assert json.loads((tmp_path / "granite-3-8b__long_500k__single__cuda.json")
                       .read_text()) == rec
+
+
+def test_a_cell_holding_the_lock_keeps_another_waiting(tmp_path):
+    """``--lock``: while one dry run holds the file's lock exclusively
+    (its timed step), another can take it in no way; while it holds it
+    shared (its build and counted step), another can take it shared, not
+    exclusively; once the first lets go, it can."""
+    import fcntl
+    path = tmp_path / "card.lock"
+    with dryrun._holding(str(path)):
+        for mode in (fcntl.LOCK_SH, fcntl.LOCK_EX):
+            with open(path) as other:
+                with pytest.raises(BlockingIOError):
+                    fcntl.flock(other, mode | fcntl.LOCK_NB)
+    with dryrun._holding(str(path), shared=True):
+        with open(path) as other:
+            fcntl.flock(other, fcntl.LOCK_SH | fcntl.LOCK_NB)
+            fcntl.flock(other, fcntl.LOCK_UN)
+        with open(path) as other:
+            with pytest.raises(BlockingIOError):
+                fcntl.flock(other, fcntl.LOCK_EX | fcntl.LOCK_NB)
+    with open(path) as other:
+        fcntl.flock(other, fcntl.LOCK_EX | fcntl.LOCK_NB)

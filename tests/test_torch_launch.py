@@ -18,13 +18,11 @@ package's, on the CPU.
 * ``PAPER_STORE`` equals the reference's dict.
 * The examples in a subprocess with ``--device cpu``: the quickstart prints
   exactly what ``examples/quickstart.py`` prints; ``grad_compression``
-  runs, and its ``run()`` from the reference's initial state gives losses
-  within ``1e-4`` of the reference example's ``run()`` over 5 steps.
+  runs (its losses against the reference example's are held in
+  ``tests/test_torch_grad_example.py``).
 """
 
-import dataclasses
 import gc as _gc
-import importlib.util
 import os
 import subprocess
 import sys
@@ -45,11 +43,9 @@ from repro.models import transformer as jt
 from repro.train import checkpoint as jckpt
 from repro.train import trainer as jtrainer
 from repro_torch.configs.paper_store import PAPER_STORE
-from repro_torch.examples import grad_compression
 from repro_torch.launch import gc as gc_cli
 from repro_torch.launch import ingest
 from repro_torch.launch import serve
-from repro_torch.train import trainer
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 CPU = ["--device", "cpu"]
@@ -264,23 +260,3 @@ def test_grad_compression_example_runs_on_the_cpu():
     out = run_py(["-m", "repro_torch.examples.grad_compression", "--device",
                   "cpu", "--steps", "5"])
     assert "final: dense" in out and "cross-pod traffic cut to" in out
-
-
-@pytest.mark.parametrize("compressed", [True, False],
-                         ids=["compressed", "dense"])
-def test_grad_compression_losses_match_the_reference_example(compressed):
-    spec = importlib.util.spec_from_file_location(
-        "reference_grad_compression",
-        os.path.join(ROOT, "examples", "grad_compression.py"))
-    ref = importlib.util.module_from_spec(spec)
-    spec.loader.exec_module(ref)
-    want, want_wire = ref.run(compressed, 5, 0.25)
-    jcfg = jget_arch("granite-3-8b").reduced()
-    state = trainer.state_from_numpy(jax.tree.map(
-        np.asarray, jtrainer.init_compressed_state(jcfg, jax.random.key(0),
-                                                   n_pods=2)), "cpu")
-    got, wire = grad_compression.run(compressed, 5, 0.25, device="cpu",
-                                     state=state)
-    np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-4)
-    assert wire == pytest.approx(want_wire, rel=1e-6)
-    assert dataclasses.asdict(jcfg)["dtype"] == "float32"

@@ -27,9 +27,11 @@ same with one kv head (each rank projects the kv head its query heads
 read); the same with 3 query heads on 2 ranks (the query rows split
 instead); whisper-tiny with 3 heads (the encoder and the decoder's
 cross-attention over row-split queries); the vlm's cross blocks; zamba2's
-shared attention beside its Mamba2 layers; a MoE arch and xlstm (their
-own layouts, over the stream). Each rank also checks that its sub-layers
-ran on local shards.
+shared attention beside its Mamba2 layers; a MoE arch (its own layout,
+over the stream) and xlstm. Each rank also checks that its sub-layers ran
+on local shards: zamba2's Mamba2 and xlstm's mLSTM and sLSTM layers each
+on plain tensors of its one row (4 rows over the data axes and ``model``
+together), weights whole.
 
 On a (1, 1) mesh (one gloo rank in this process), where the stream's
 layout costs nothing, a bf16 mesh step of each family equals the plain
@@ -68,6 +70,9 @@ OCFG = dict(lr=1e-4, warmup_steps=1, total_steps=50, grad_clip=1.0)
 B, T = 4, 32
 RTOL = 1e-5
 JOIN_S = 300
+RECURRENT = ("mamba2_apply", "mlstm_apply", "slstm_apply")
+# the recurrent kinds each case's stack runs
+KINDS = {"hybrid": {"mamba2_apply"}, "ssm": {"mlstm_apply", "slstm_apply"}}
 
 
 def cfg_of(case):
@@ -104,14 +109,24 @@ def rank_main(rank, init_file, out_dir):
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=WORLD, rank=rank,
                             timeout=datetime.timedelta(seconds=JOIN_S))
-    from repro_torch.models import layers
-    calls, given = [], []
+    from repro_torch.models import layers, ssm
+    calls, given, recurrent = [], [], []
     use_weight, update = shd.use_weight, opt.update
+    applies = {k: getattr(ssm, k) for k in RECURRENT}
 
     def spy_weight(w, dim):
         # a weight moved to where a layer over the stream uses it
         calls.append(1)
         return use_weight(w, dim)
+
+    def spy_apply(kind):
+        # a recurrent sub-layer: the types and shapes it was given
+        def apply(p, x, cfg, **kw):
+            recurrent.append((kind, type(x).__name__, tuple(x.shape),
+                              tuple(sorted({type(w).__name__
+                                            for _, w in leaves(p)}))))
+            return applies[kind](p, x, cfg, **kw)
+        return apply
 
     def spy_update(ocfg, grads, state, params, **kw):
         given.append({
@@ -125,6 +140,8 @@ def rank_main(rank, init_file, out_dir):
     for m in holders:
         m.use_weight = spy_weight
     opt.update = spy_update
+    for k in RECURRENT:
+        setattr(ssm, k, spy_apply(k))
     try:
         mesh = make_mesh(*MESH, device_type="cpu")
         out = {}
@@ -133,10 +150,11 @@ def rank_main(rank, init_file, out_dir):
                 step, state = trainer.jit_train_step(
                     cfg_of(case), opt.OptConfig(**OCFG), mesh, init(case),
                     profile)
-                del calls[:]
+                del calls[:], recurrent[:]
                 state, metrics = step(state, batch_of(case))
                 out[case, profile] = dict(
                     given[-1], metrics=metrics, local_calls=len(calls),
+                    recurrent=list(recurrent),
                     params=tree_map(lambda t: t.full_tensor(), state.params),
                     m=tree_map(lambda t: t.full_tensor(), state.opt.m))
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
@@ -144,6 +162,8 @@ def rank_main(rank, init_file, out_dir):
         for m in holders:
             m.use_weight = use_weight
         opt.update = update
+        for k, fn in applies.items():
+            setattr(ssm, k, fn)
         dist.destroy_process_group()
 
 
@@ -204,6 +224,12 @@ def test_stream_gradients_equal_the_plain_ones(ranks, case, profile):
     for rank, got in enumerate(ranks):
         r = got[case, profile]
         assert r["local_calls"] > 0, rank
+        if case in KINDS:
+            # forward and recompute: each on plain tensors of its one row
+            assert {k for k, *_ in r["recurrent"]} == KINDS[case], rank
+            assert {tuple(c[1:]) for c in r["recurrent"]} == {
+                ("Tensor", (B // WORLD, T, cfg_of(case).d_model),
+                 ("Tensor",))}, (rank, r["recurrent"])
         total = float(r["metrics"]["total"])
         assert abs(total - float(want_total)) <= RTOL * abs(float(want_total))
         assert not _bad(dict(leaves(r["grads"])), dict(leaves(want))), rank

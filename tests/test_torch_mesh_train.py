@@ -16,9 +16,15 @@ one of -3.7e-8) turns its rounding into a tenth of lr. Four
 reduced configs: a dense arch, a MoE arch (tables and gathers batch-local
 through ``shard_map_batch``, experts over ``model``), the dense arch
 with one kv head, which takes the full-head form (k and v broadcast to
-the query heads before the heads split), and an ssm arch (xlstm: sLSTM's
-token loop runs on each rank's rows as plain tensors, its recurrent matrix
-whole, with its gradient summed over the ranks' rows). The gradients ``opt.update``
+the query heads before the heads split), and an ssm arch (xlstm: its
+mLSTM and sLSTM layers run on each rank's one row, the batch split over
+both axes, as plain tensors, their weights whole, with their gradients
+summed over the ranks' rows). Four more hold a batch of 2 rows, which do
+not divide over both axes, for xlstm and for zamba2 (the shared attention
+beside Mamba2 layers): on (2, 2) their recurrent layers run on each data
+rank's one row, whole over ``model``; on a (1, 4) mesh the 2 rows are cut
+into 2 parts of one row, each run by 2 ``model`` ranks and gathered. The
+gradients ``opt.update``
 receives already hold their moments' placements: the mesh step
 reduce-scatters them there before the clip.
 """
@@ -42,7 +48,16 @@ MESH = ((2, 2), ("data", "model"))
 CASES = {"dense": ("granite-3-8b", {}),
          "moe": ("granite-moe-1b-a400m", {}),
          "one_kv_head": ("granite-3-8b", {"n_kv_heads": 1}),
-         "ssm": ("xlstm-1.3b", {})}
+         "ssm": ("xlstm-1.3b", {}),
+         "ssm_two_rows": ("xlstm-1.3b", {}),
+         "hybrid_two_rows": ("zamba2-2.7b", {}),
+         "ssm_rows_in_parts": ("xlstm-1.3b", {}),
+         "hybrid_rows_in_parts": ("zamba2-2.7b", {})}
+# the batch's rows (4 split over data and model together) and the mesh
+ROWS = {"ssm_two_rows": 2, "hybrid_two_rows": 2, "ssm_rows_in_parts": 2,
+        "hybrid_rows_in_parts": 2}
+SHAPE = {"ssm_rows_in_parts": (1, 4), "hybrid_rows_in_parts": (1, 4)}
+RECURRENT = ("mamba2_apply", "mlstm_apply", "slstm_apply")
 PROFILES = ("tp", "fsdp_tp")
 # AdamW's first step moves a param by ~lr wherever |g| >> eps, whatever |g|:
 # at lr 1e-4 the rounding of near-zero gradients stays inside the bound,
@@ -64,8 +79,9 @@ def init(case):
 
 def batch_of(case):
     rng = np.random.default_rng(3)
-    tok = rng.integers(0, cfg_of(case).vocab_size, (4, 24)).astype(np.int32)
-    lab = np.concatenate([tok[:, 1:], np.full((4, 1), -1, np.int32)], 1)
+    rows = ROWS.get(case, 4)
+    tok = rng.integers(0, cfg_of(case).vocab_size, (rows, 24)).astype(np.int32)
+    lab = np.concatenate([tok[:, 1:], np.full((rows, 1), -1, np.int32)], 1)
     return {"tokens": torch.as_tensor(tok), "labels": torch.as_tensor(lab)}
 
 
@@ -73,12 +89,21 @@ def rank_main(rank, init_file, out_dir):
     """One rank: every case under both profiles, one mesh step each."""
     import torch.distributed as dist
     from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import ssm
     torch.set_num_threads(1)
     dist.init_process_group("gloo", init_method=f"file://{init_file}",
                             world_size=WORLD, rank=rank,
                             timeout=datetime.timedelta(seconds=JOIN_S))
-    placed, given = [], []
+    placed, given, recurrent = [], [], []
     update = opt.update
+    applies = {k: getattr(ssm, k) for k in RECURRENT}
+
+    def spy_apply(kind):
+        # a recurrent sub-layer: the type and shape of the x it was given
+        def apply(p, x, cfg, **kw):
+            recurrent.append((type(x).__name__, tuple(x.shape)))
+            return applies[kind](p, x, cfg, **kw)
+        return apply
 
     def spy(ocfg, grads, state, params, **kw):
         # each gradient's placements beside its moments', and the gradients
@@ -89,26 +114,34 @@ def rank_main(rank, init_file, out_dir):
         return update(ocfg, grads, state, params, **kw)
 
     opt.update = spy
+    for k in RECURRENT:
+        setattr(ssm, k, spy_apply(k))
     try:
-        mesh = make_mesh(*MESH, device_type="cpu")
+        meshes = {shape: make_mesh(shape, MESH[1], device_type="cpu")
+                  for shape in {MESH[0], *SHAPE.values()}}
         out = {}
         for case in CASES:
             for profile in PROFILES:
                 cfg = cfg_of(case)
                 step, state = trainer.jit_train_step(
-                    cfg, opt.OptConfig(**OCFG), mesh, init(case), profile)
+                    cfg, opt.OptConfig(**OCFG),
+                    meshes[SHAPE.get(case, MESH[0])], init(case), profile)
                 held = {k: sum(x.to_local().numel() for _, x in leaves(t))
                         for k, t in (("params", state.params),
                                      ("m", state.opt.m))}
+                del recurrent[:]
                 state, m = step(state, batch_of(case))
                 out[case, profile] = {
                     "params": tree_map(lambda t: t.full_tensor(), state.params),
                     "m": tree_map(lambda t: t.full_tensor(), state.opt.m),
                     "metrics": m, "held": held,
-                    "grad_placements": placed[-1], "grads": given[-1]}
+                    "grad_placements": placed[-1], "grads": given[-1],
+                    "recurrent": set(recurrent)}
         torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
     finally:
         opt.update = update
+        for k, fn in applies.items():
+            setattr(ssm, k, fn)
         dist.destroy_process_group()
 
 
@@ -149,6 +182,11 @@ def test_mesh_step_equals_the_plain_step(ranks, case, profile):
         # `data`) and a quarter or so of the ZeRO-1 moments
         assert r["held"]["params"] < whole, (rank, r["held"])
         assert r["held"]["m"] < whole / 2, (rank, r["held"])
+        if case in ROWS:
+            # each data rank's one row, or each rank's part of its two, as
+            # a plain tensor
+            assert r["recurrent"] == {("Tensor", (1, 24, cfg.d_model))}, (
+                rank, r["recurrent"])
         loss, want_loss = float(r["metrics"]["loss"]), float(wm["loss"])
         assert abs(loss - want_loss) <= RTOL * abs(want_loss), (rank, loss,
                                                                  want_loss)
@@ -177,9 +215,12 @@ def test_update_gets_gradients_in_their_moments_placements(ranks, case,
     """The mesh step reduces each gradient onto its ZeRO-1 moments'
     placements before the clip, so ``opt.update`` moves no gradient and
     its global norm all-reduces a scalar; the moments are split over
-    ``data`` (and the gradients with them) for most leaves."""
+    ``data`` (and the gradients with them) for most leaves, where ``data``
+    has more than one rank."""
     for rank, got in enumerate(ranks):
         pairs = got[case, profile]["grad_placements"]
         assert pairs and all(g == m for g, m in pairs), (rank, pairs)
+        if SHAPE.get(case, MESH[0])[0] == 1:
+            continue
         on_data = sum(getattr(m[0], "dim", None) is not None for _, m in pairs)
         assert on_data > len(pairs) // 2, (rank, on_data, len(pairs))

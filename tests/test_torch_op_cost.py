@@ -8,7 +8,8 @@
   correction);
 * one rank of a (4, 4) mesh (a fake process group, meta tensors) counts
   fewer FLOPs than the same train step on a (1, 1) mesh, and at least 1/16
-  of them, and counts the collectives its shards need;
+  of them, and counts the collectives its shards need; DTensor's own
+  all-to-all counts as one;
 * ``accounting.param_counts`` and ``model_flops`` equal the reference's for
   every arch x {train, prefill, decode} at the cells' shapes.
 """
@@ -82,6 +83,22 @@ def test_one_rank_of_a_mesh_counts_its_share():
     assert whole.flops / 16 <= rank.flops < whole.flops
     assert rank.total_coll_bytes > 0
     assert set(rank.coll_count) <= set(op_cost.KINDS)
+
+
+def test_dtensor_all_to_all_counts_as_one():
+    """DTensor's own all-to-all (a shard moved between dims over a mesh
+    dim, as the stream moves from its sequence to its rows on the card)
+    counts as an ``all_to_all`` of its output's bytes."""
+    import torch.distributed._functional_collectives as funcol
+    import torch.distributed.tensor._collective_utils  # noqa: F401 (the op)
+    with dryrun.fake_group(4):
+        mesh = make_mesh((1, 4), ("data", "model"), device_type="cpu")
+        group = funcol._group_or_group_name(funcol._resolve_group((mesh, 1)))
+        c = op_cost.analyze(
+            lambda x: torch.ops._dtensor.shard_dim_alltoall(x, 1, 0, group),
+            torch.empty(4, 8, 16, device="meta"))
+    assert c.coll_count == {"all_to_all": 1}
+    assert c.coll_bytes == {"all_to_all": 1 * 32 * 16 * 4}
 
 
 @pytest.mark.parametrize("arch", list_archs())
