@@ -91,9 +91,10 @@ Phases, each of which exits non-zero on failure:
    weights the deep recurrent stacks carry the two devices' different bf16
    rounding into their logits well past 2e-2, while their f32 forwards
    agree far inside it:
-   whisper-tiny, xlstm-1.3b and zamba2-2.7b at their published depth, and
-   llama-3.2-vision-11b at its published widths, depth cut to L = 10 of 40
-   (``--vlm-layers``; the run's time limit). The vlm gets seeded
+   whisper-tiny at its published depth, xlstm-1.3b at 24 of its 48 layers
+   and zamba2-2.7b at 30 of its 54 (``XLSTM_LAYERS``, ``ZAMBA2_LAYERS``),
+   and llama-3.2-vision-11b at L = 5 of 40 (``--vlm-layers``), all at
+   their published widths (the cuts: the run's time limit). The vlm gets seeded
    ``image_embeds`` (4, 1024, 4096) bf16, whisper seeded ``encoder_frames``
    (4, 1500, 384) bf16 (its 30-s window after the stride-2 conv) and a
    decoder ``max_len`` of 448, its published target length. Then the ssm
@@ -156,9 +157,12 @@ Phases, each of which exits non-zero on failure:
    train_4k and the recurrent train cells, xlstm-1.3b x train_4k cut to 8
    layers (7 mLSTM and 1 sLSTM) and zamba2-2.7b x train_4k cut to 6 (the
    shared attention and 6 Mamba2 layers), each recurrent layer on its
-   rank's one row of the batch, under a fake process group, each on the card (its own
+   rank's one row of the batch, and the same two recurrent cells on the
+   multi-pod (2, 16, 16) mesh, where each row is shared by 2 ``model``
+   ranks that split its heads (the record's ``row_share``), under a fake
+   process group, each on the card (its own
    shards, random values: peak memory, a warm step's time, op_cost's
-   counts; two processes at once, each timing its step with the card to
+   counts; three processes at once, each timing its step with the card to
    itself) and on meta (counts only, run beside (a), (c) and (e)); the
    card's FLOPs must equal meta's,
    and a train cell's may be at most 1.10 times one device's in the JAX
@@ -226,9 +230,9 @@ def parse_args():
                    help="granite-3-8b layers in the gradient tree, the served "
                         "and the trained model (default 4 of 40; widths are "
                         "never cut)")
-    p.add_argument("--vlm-layers", type=int, default=10,
+    p.add_argument("--vlm-layers", type=int, default=5,
                    help="llama-3.2-vision-11b layers served in phase 6b, a "
-                        "multiple of 5 (default 10 of 40; widths are never "
+                        "multiple of 5 (default 5 of 40; widths are never "
                         "cut)")
     return p.parse_args()
 
@@ -1910,6 +1914,9 @@ def serve_model(torch, np, cfg, workdir, *, tag, depth, extra_rows=None,
 
 WHISPER_FRAMES = 1500    # whisper's 30-s window after its stride-2 conv
 WHISPER_MAX_LEN = 448    # whisper's published target length
+# 6b's recurrent families, cut to about half their published depth (48 and
+# 54) to keep the run inside its time limit
+XLSTM_LAYERS, ZAMBA2_LAYERS = 24, 30
 
 
 def frontend_rows(key, n, d, dtype):
@@ -1937,11 +1944,16 @@ def family_configs(vlm_layers):
                           dtype_of(whisper.dtype)),
             WHISPER_FRAMES, WHISPER_MAX_LEN),
         "xlstm-1.3b": (
-            get_arch("xlstm-1.3b"), "published depth (48 layers: 6 "
-            "super-blocks of 7 mLSTM + 1 sLSTM)", None, 1, SERVE_MAX_LEN),
+            dataclasses.replace(get_arch("xlstm-1.3b"), n_layers=XLSTM_LAYERS),
+            f"depth cut to {XLSTM_LAYERS} of 48 layers ("
+            f"{XLSTM_LAYERS // 8} super-blocks of 7 mLSTM + 1 sLSTM; the "
+            f"run's time limit)", None, 1, SERVE_MAX_LEN),
         "zamba2-2.7b": (
-            get_arch("zamba2-2.7b"), "published depth (54 Mamba2 layers, the "
-            "shared attention block before every 6)", None, 1, SERVE_MAX_LEN),
+            dataclasses.replace(get_arch("zamba2-2.7b"),
+                                n_layers=ZAMBA2_LAYERS),
+            f"depth cut to {ZAMBA2_LAYERS} of 54 Mamba2 layers (the shared "
+            f"attention block before every 6; the run's time limit)", None,
+            1, SERVE_MAX_LEN),
         "llama-3.2-vision-11b": (
             dataclasses.replace(vlm, n_layers=vlm_layers),
             f"depth cut to L = {vlm_layers} of 40 "
@@ -2821,14 +2833,17 @@ def deep_train_path(torch, np, workdir):
 
 # one rank of each cell on the card under a fake process group: whisper-tiny
 # on the (4, 4) mesh the reference's smoke test compiles, granite-3-8b and
-# the recurrent families on the production (16, 16) mesh; "<arch>@<L>" is
-# the arch cut to L layers (the dry run's --layers), one super-block each of
-# xlstm (7 mLSTM + 1 sLSTM) and zamba2 (shared attention + 6 Mamba2), the
-# time limit
+# the recurrent families on the production (16, 16) mesh, and on the
+# multi-pod (2, 16, 16) one, where 2 model ranks share each row and split its
+# heads; "<arch>@<L>" is the arch cut to L layers (the dry run's --layers),
+# one super-block each of xlstm (7 mLSTM + 1 sLSTM) and zamba2 (shared
+# attention + 6 Mamba2), the time limit
 MESH_CELLS = (("xlstm-1.3b@8", "train_4k", "single"),    # the longest first
+              ("xlstm-1.3b@8", "train_4k", "multi"),
               ("whisper-tiny", "train_4k", "4x4"),
               ("granite-3-8b", "train_4k", "single"),
               ("zamba2-2.7b@6", "train_4k", "single"),
+              ("zamba2-2.7b@6", "train_4k", "multi"),
               # 8d: the serving cells, decode on a cache split on seq (the
               # flash-decode combine), MoE at T = 1 over a ring cache, and
               # the hybrid's heads-split caches beside its Mamba2 states
@@ -2837,7 +2852,7 @@ MESH_CELLS = (("xlstm-1.3b@8", "train_4k", "single"),    # the longest first
               ("zamba2-2.7b", "long_500k", "single"))
 FLOPS_RATIO = (1.0, 2.0)   # 8c: counted FLOPs over model_flops core + attention
 DRYRUN_S = 600
-CARD_RUNS = 2      # 8b's dry runs on the card at once
+CARD_RUNS = 3      # 8b's dry runs on the card at once
 # 8b: one device's FLOPs in the JAX reference's step of each train cell, from
 # tools/reference_rank_flops.py (repro.analysis.hlo_cost of the step XLA
 # compiles for host CPU devices, Auto mesh axes; jax 0.9.0; --layers for a
@@ -2846,7 +2861,10 @@ REFERENCE_RANK_FLOPS = {
     ("whisper-tiny", "train_4k", "4x4"): 34330411794432.0,
     ("granite-3-8b", "train_4k", "single"): 294532079943680.0,
     ("xlstm-1.3b@8", "train_4k", "single"): 13659271069696.0,
-    ("zamba2-2.7b@6", "train_4k", "single"): 14922326999040.0}
+    ("zamba2-2.7b@6", "train_4k", "single"): 14922326999040.0,
+    # --mesh 2x16x16: ("pod", "data", "model"), 512 host devices
+    ("xlstm-1.3b@8", "train_4k", "multi"): 6829635534848.0,
+    ("zamba2-2.7b@6", "train_4k", "multi"): 7461163499520.0}
 SHARE_LIMIT = 1.10
 # granite-3-8b x train_4k, rank 0 of (16, 16) on the H100 while each op chose
 # its own layout (the stream split on d): the stream's layout may not move
@@ -3146,6 +3164,8 @@ def mesh_path(torch, np, layers, workdir):
         if c["flops"] != m["flops"]:
             fail(f"dry run {name}: the card counted {c['flops']!r} FLOPs, "
                  f"meta {m['flops']!r}")
+        if "row_share" in cu:
+            log(f"[dryrun {name}] recurrent rows: {json.dumps(cu['row_share'])}")
         for op, v in list(cu["flops_by_op"].items())[:10]:
             log(f"[dryrun {name}]   FLOPs {op}: {v['flops']!r} in "
                 f"{v['count']}")
@@ -3290,7 +3310,7 @@ def main() -> int:
     finally:
         shutil.rmtree(workdir, ignore_errors=True)
 
-    # 8. the mesh tooling: the mesh step, op_cost and one rank of two cells
+    # 8. the mesh tooling: the mesh step, op_cost and one rank of each cell
     workdir = Path(tempfile.mkdtemp(prefix="chip_smoke_mesh_", dir=workroot))
     try:
         paths["mesh"] = mesh_path(torch, np, args.layers, workdir)

@@ -44,7 +44,8 @@ Three helpers run a function on plain local shards, one case each:
   with the rank's offset along every split dim, the outputs in the
   placements the caller names: the layers over the stream (their
   gradients Partial where the outputs split the work; a recurrent
-  sub-layer on its rank's rows or its part of them, weights whole), the
+  sub-layer on its rank's rows, or on its part of them and its share of
+  their heads, weights whole), the
   KV cache's writes and the flash-decode combine over a cache split on
   seq.
 
@@ -320,21 +321,27 @@ def shard_call(fn, out_placements: Optional[Sequence[Any]], *args,
     no ambient mesh (the plain code) and must compute each output shard
     from its rank's shards alone; where it needs other ranks' shards it
     runs the collectives itself. Plain tensors among ``args`` pass as they
-    are. With ``rows`` the first argument is a batch laid out by
-    :func:`entering` with ``rows`` and ``fn`` returns one tensor of its
-    rows: where ``model`` holds them whole and they cut into parts
-    (:func:`_row_parts`), each rank runs ``fn`` on its part alone (``spans``
-    still those of the whole shards), the parts are gathered whole over
-    ``model``, and ``model`` splits the work."""
+    are.
+
+    With ``rows`` the first argument is a batch laid out by
+    :func:`entering` with ``rows``, ``fn(group, rows, *shards)`` returns
+    one tensor of its rows and ``group`` is None, except where ``model``
+    holds a data rank's rows whole (:func:`row_share`). There the rows cut
+    into ``parts`` and each part's ``share`` consecutive ``model`` ranks
+    form its :class:`RowShare` ``group``: each rank runs ``fn`` on its
+    part's rows and the group's heads it takes (:meth:`RowShare.heads`),
+    its output is its share of the part's sum, and one all-gather over
+    ``model`` sums each group's outputs into every part, whole on every
+    rank (:class:`_GatherParts`). ``model`` then splits the work: the
+    arguments' gradients are Partial over it."""
     from torch.distributed.tensor import DTensor, Partial
     mesh = next(a.device_mesh for a in args if isinstance(a, DTensor))
     splits = [out_placements is not None and not p.is_replicate()
               for p in (out_placements or (None,) * mesh.ndim)]
-    parts = _row_parts(args[0]) if rows else 1
-    if parts > 1:
+    parts, share = row_share(mesh, args[0].shape[0]) if rows else (1, 1)
+    if share > 1:
         dim = mesh.mesh_dim_names.index(MODEL)
-        share = mesh.size(dim) // parts
-        part = mesh.get_coordinate()[dim] // share
+        part, index = divmod(mesh.get_coordinate()[dim], share)
         splits[dim] = True
     spans = [shard_spans(a) for a in args]
     local = [a.to_local(grad_placements=tuple(
@@ -342,13 +349,14 @@ def shard_call(fn, out_placements: Optional[Sequence[Any]], *args,
                  for s, p in zip(splits, a.placements)))
              if isinstance(a, DTensor) else a for a in args]
     with use_mesh(None):
-        if parts > 1:
+        if share > 1:
             n = local[0].shape[0] // parts
-            out = _GatherParts.apply(
-                fn(spans, local[0][part * n:(part + 1) * n], *local[1:]),
-                mesh, dim, part, share)
+            group = RowShare(mesh, dim, share, index)
+            y = fn(group, local[0][part * n:(part + 1) * n], *local[1:])
+            out = _GatherParts.apply(y, mesh, dim, part, share,
+                                     share // group.ways)
         else:
-            out = fn(spans, *local)
+            out = fn(None if rows else spans, *local)
     if out is None:
         return None
     return rebuild(out, iter([
@@ -434,7 +442,7 @@ class _ReducedGrad(torch.autograd.Function):
 def _row_axes(mesh: Any, rows: int) -> tuple:
     """The longest major-first run of the data axes and ``model`` whose
     size divides ``rows``: what a recurrent sub-layer's batch splits over
-    (the rest of the mesh holds it whole: see :func:`_row_parts`)."""
+    (the rest of the mesh holds it whole: see :func:`row_share`)."""
     axes = batch_axes(mesh) + ((MODEL,) if MODEL in mesh.mesh_dim_names
                                else ())
     while axes and rows % _axes_size(mesh, axes):
@@ -442,46 +450,149 @@ def _row_axes(mesh: Any, rows: int) -> tuple:
     return axes
 
 
-def _row_parts(x: torch.Tensor) -> int:
-    """Into how many parts a recurrent sub-layer cuts each rank's rows of
-    DTensor ``x`` (laid out by :func:`entering` with ``rows``): where the
-    data axes split the rows and ``model`` does not, the largest divisor
-    of ``model``'s size that divides a data rank's rows (a multi-pod (2,
-    16, 16) mesh's train_4k batch: 8 rows a data rank, 8 parts of one row,
-    each run by 2 of the 16 ``model`` ranks); 1 otherwise."""
-    mesh = x.device_mesh
+def row_share(mesh: Any, rows: int) -> Tuple[int, int]:
+    """``(parts, share)`` of a recurrent sub-layer's ``rows`` (its batch,
+    laid out by :func:`entering` with ``rows``) on ``mesh``: where the data
+    axes split the rows and ``model`` does not, ``model`` holds each data
+    rank's rows whole. They then cut into ``parts``, the largest divisor
+    of ``model``'s size that divides a data rank's rows, and each part is
+    shared by ``share = model // parts`` consecutive ``model`` ranks, which
+    split its heads (:class:`RowShare`). A multi-pod (2, 16, 16) mesh's
+    train_4k batch: 8 rows a data rank, 8 parts of one row, each shared by
+    2 of the 16 ``model`` ranks; one row a data rank: 1 part shared by all
+    of ``model``. ``(1, 1)`` elsewhere: each rank runs its own rows."""
     data = batch_axes(mesh)
-    if _row_axes(mesh, x.shape[0]) != data or MODEL not in \
-            mesh.mesh_dim_names:
-        return 1
-    rows, m = x.shape[0] // _axes_size(mesh, data), mesh_sizes(mesh)[MODEL]
-    return max(k for k in range(1, m + 1) if m % k == 0 and rows % k == 0)
+    if MODEL not in mesh.mesh_dim_names or _row_axes(mesh, rows) != data:
+        return 1, 1
+    rows, m = rows // _axes_size(mesh, data), mesh_sizes(mesh)[MODEL]
+    parts = max(k for k in range(1, m + 1) if m % k == 0 and rows % k == 0)
+    return parts, m // parts
+
+
+def head_ways(heads: int, share: int) -> int:
+    """Over how many of a share group's ``share`` ranks a sub-layer of
+    ``heads`` heads splits them: the largest divisor of ``share`` that
+    divides ``heads`` (:meth:`RowShare.heads`)."""
+    return max(k for k in range(1, share + 1)
+               if share % k == 0 and heads % k == 0)
+
+
+class RowShare:
+    """The ``share`` consecutive ``model`` ranks (mesh dim ``dim``) that
+    hold one part of a recurrent sub-layer's rows, seen from the rank at
+    ``index`` among them (:func:`shard_call` with ``rows``), and their
+    process group. The sub-layer splits its heads over ``ways`` of them
+    (:meth:`heads`); where ``ways`` is less than ``share``, each ``share //
+    ways`` ranks in a row take the same heads and compute the same values
+    (the duplicates, which :class:`_GatherParts` and :meth:`gather`
+    average)."""
+
+    def __init__(self, mesh: Any, dim: int, share: int, index: int):
+        self.share, self.index = share, index
+        self.pg = _share_group(mesh, dim, share)
+        self.ways = 1
+
+    def heads(self, heads: int) -> Tuple[int, int]:
+        """``(ways, k)``: the group splits ``heads`` heads ``ways`` ways
+        (:func:`head_ways`) and this rank takes the ``k``-th ``heads //
+        ways`` of them."""
+        self.ways = head_ways(heads, self.share)
+        return self.ways, self.index // (self.share // self.ways)
+
+    def gather(self, x: torch.Tensor) -> torch.Tensor:
+        """(ways, *x.shape): each of the ``ways`` head slices' ``x``, in
+        order, on every rank of the group (one all-gather in the group; its
+        backward a reduce-scatter there)."""
+        return _GatherShare.apply(x, self)
+
+
+# {(id of a model group, share): (that group, this rank's share group)};
+# the model group is held so that its id is not reused by a later one
+_SHARE_GROUPS: dict = {}
+
+
+def _share_group(mesh: Any, dim: int, share: int):
+    """This rank's process group of ``share`` consecutive ranks along mesh
+    dim ``dim``. Made once per ``model`` group and ``share``: every rank
+    makes every such group, in one order, where :func:`shard_call` first
+    needs one (all ranks reach it together)."""
+    import torch.distributed as dist
+    pg = mesh.get_group(dim)
+    key = (id(pg), share)
+    if key not in _SHARE_GROUPS:
+        ranks = mesh.mesh.movedim(dim, -1).reshape(-1, share).tolist()
+        mine, _ = dist.new_subgroups_by_enumeration(ranks)
+        _SHARE_GROUPS[key] = (pg, mine)
+    return _SHARE_GROUPS[key][1]
+
+
+def _all_gather(x: torch.Tensor, group) -> torch.Tensor:
+    """(ranks of ``group``, *x.shape): ``x`` of each, in rank order."""
+    import torch.distributed as dist
+    ranks = dist.get_world_size(group)
+    out = x.new_empty((ranks * x.shape[0],) + x.shape[1:])
+    # all_gather_into_tensor's newer name, where torch has it
+    gather = getattr(dist, "all_gather_single", dist.all_gather_into_tensor)
+    gather(out, x.contiguous(), group=group)
+    return out.unflatten(0, (ranks, -1))
+
+
+def _reduce_scatter(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` (ranks of ``group``, n, ...) summed over the group's ranks,
+    each rank keeping its own row."""
+    import torch.distributed as dist
+    out = x.new_empty(x.shape[1:])
+    scatter = getattr(dist, "reduce_scatter_single", dist.reduce_scatter_tensor)
+    scatter(out, x.flatten(0, 1).contiguous(), group=group)
+    return out
+
+
+class _GatherShare(torch.autograd.Function):
+    """:meth:`RowShare.gather`: one all-gather in the share group, each head
+    slice the mean of the ranks that took it. Backward: one reduce-scatter
+    there, each rank's slice of the group's gradients summed, over its
+    duplicates."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        dup = group.share // group.ways
+        got = _all_gather(x, group.pg)
+        return got if dup == 1 else \
+            got.unflatten(0, (group.ways, dup)).sum(1) / dup
+
+    @staticmethod
+    def backward(ctx, grad):
+        group = ctx.group
+        dup = group.share // group.ways
+        if dup == 1:
+            return _reduce_scatter(grad, group.pg), None
+        mine = _reduce_scatter(grad.repeat_interleave(dup, 0), group.pg)
+        return mine / dup, None
 
 
 class _GatherParts(torch.autograd.Function):
-    """This rank's output ``y`` of part ``part`` of the rows (``share``
-    ranks in a row along mesh dim ``dim`` run each part) -> every part,
-    gathered whole over the dim in order (one all-gather, each part taken
-    from the first of its ranks). Backward: the rank's part of the
-    gradient over ``share``, since each of its ranks hands that part on and
-    the arguments' gradients sum over the dim (Partial there)."""
+    """This rank's output ``y`` for part ``part`` of the rows (the
+    ``share`` ranks in a row along mesh dim ``dim`` that hold the part
+    each give their share of its sum) -> every part, whole, in order: one
+    all-gather over the dim, each group's outputs summed, over ``dup``
+    where ``dup`` ranks compute each share alike. Backward: the rank's
+    part of the gradient (over ``dup``), since the arguments' gradients
+    sum over the dim (Partial there)."""
 
     @staticmethod
-    def forward(ctx, y, mesh, dim, part, share):
-        import torch.distributed as dist
-        ctx.n, ctx.part, ctx.share = y.shape[0], part, share
-        out = y.new_empty((mesh.size(dim) * y.shape[0],) + y.shape[1:])
-        # all_gather_into_tensor's newer name, where torch has it
-        gather = getattr(dist, "all_gather_single",
-                         dist.all_gather_into_tensor)
-        gather(out, y.contiguous(), group=mesh.get_group(dim))
-        return out.unflatten(0, (mesh.size(dim), -1))[::share].flatten(0, 1)
+    def forward(ctx, y, mesh, dim, part, share, dup):
+        ctx.n, ctx.part, ctx.dup = y.shape[0], part, dup
+        out = _all_gather(y, mesh.get_group(dim)).unflatten(
+            0, (-1, share)).sum(1)
+        return (out if dup == 1 else out / dup).flatten(0, 1)
 
     @staticmethod
     def backward(ctx, g):
         n = ctx.n
-        return (g[ctx.part * n:(ctx.part + 1) * n] / ctx.share, None, None,
-                None, None)
+        g = g[ctx.part * n:(ctx.part + 1) * n]
+        return (g if ctx.dup == 1 else g / ctx.dup), None, None, None, None, \
+            None
 
 
 def entering(x: torch.Tensor, rows: bool = False) -> torch.Tensor:

@@ -11,7 +11,7 @@ counted by :mod:`repro_torch.analysis.op_cost` and once timed. On
 batch live on the card and the step runs for real: the memory, the time
 and the counts are real, the values are not (no other rank sent its
 part). On ``--device meta`` only shapes exist: the counts are the same,
-there is no time or peak memory.
+there is no time or peak memory, and the step runs once, counted.
 
 Each record (JSON, under ``experiments/dryrun_torch/``) has the
 reference's keys where they carry over: ``memory`` (the rank's argument
@@ -22,7 +22,11 @@ by kind), ``collectives`` (bytes and counts by kind, total bytes; under
 them, and under ``largest`` the largest single collective),
 ``flops_by_op`` (the FLOPs and counts by op and site, largest first),
 ``analytic`` (:mod:`repro_torch.analysis.accounting`), ``n_devices``,
-``mesh_shape``, ``profile``. The reference's ``lower_s`` and ``compile_s``
+``mesh_shape``, ``profile``; a train cell with recurrent sub-layers also
+has ``row_share``: the parts a data rank's rows cut into, the ``model``
+ranks that share each part, and over how many of them each recurrent kind
+splits its heads (``ways``; the rest compute alike). The reference's
+``lower_s`` and ``compile_s``
 become ``step_s`` (a warm step's seconds; null on meta); its ``cost``
 (XLA's own analysis) has no counterpart and is left out.
 
@@ -135,7 +139,9 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str, *,
     card to itself."""
     import torch
     from ..analysis import accounting, op_cost
+    from ..dist import sharding as shd
     from ..models import config as config_mod
+    from ..models import ssm
     from . import specs
     from .mesh import make_mesh
 
@@ -174,27 +180,36 @@ def run_cell(arch: str, shape: str, mesh_name: str, out_dir: str, *,
             gen = (torch.Generator(device=device).manual_seed(0)
                    if on_card else None)
             # step 1 counted (it also fills DTensor's sharding caches),
-            # step 2 timed; a train step updates its state in place
+            # step 2 timed on the card (meta has no time to take); a train
+            # step updates its state in place
             with _holding(lock, shared=True):
                 cell = specs.make_cell(arch, shape, mesh, device=device,
                                        gen=gen)
                 arg_bytes, note = _local_bytes(cell.args), cell.note
                 corrected = op_cost.analyze(cell.fn, *cell.args)
-            with _holding(lock):
-                if on_card:
+            mem = {"argument_size_in_bytes": arg_bytes}
+            step_s = None
+            if on_card:
+                with _holding(lock):
                     torch.cuda.synchronize()
                     torch.cuda.reset_peak_memory_stats()
-                t0 = time.perf_counter()
-                out = cell.fn(*cell.args)
-                if on_card:
+                    t0 = time.perf_counter()
+                    out = cell.fn(*cell.args)
                     torch.cuda.synchronize()
-                step_s = time.perf_counter() - t0 if on_card else None
-            mem = {"argument_size_in_bytes": arg_bytes}
-            if on_card:
+                    step_s = time.perf_counter() - t0
                 mem["peak_allocated_bytes"] = torch.cuda.max_memory_allocated()
                 mem["allocated_after_bytes"] = torch.cuda.memory_allocated()
-            del out, cell
+                del out
+            del cell
         info = specs.SHAPES[shape]
+        heads = ssm.recurrent_heads(cfg)
+        if heads and info["kind"] == "train":
+            parts, share = shd.row_share(shd.AbstractMesh(dims, axes),
+                                         info["global_batch"])
+            record["row_share"] = {
+                "parts": parts, "share": share,
+                "ways": {k: shd.head_ways(h, share) for k, h in heads.items()}}
+            print(f"[{name}] recurrent rows: {record['row_share']}")
         analytic = accounting.model_flops(
             cfg, info["kind"], info["global_batch"],
             1 if info["kind"] == "decode" else info["seq_len"],

@@ -15,6 +15,19 @@ cache and leaves the one it was given untouched (the stack runner in
 math follows the reference's dtype casts exactly: the core and the
 recurrences in f32, their outputs cast back to the value dtype.
 
+On a mesh, where ``model`` ranks share one part of a train step's rows
+(:func:`..dist.sharding.row_share`), each layer takes a
+:class:`..dist.sharding.RowShare` and computes its heads' share of the
+output, which :func:`..dist.sharding.shard_call` sums over the group:
+Mamba2 its heads' z, x and dt columns of ``w_in`` (B and C, read by every
+head, whole), conv channels, core and rows of ``w_out``; mLSTM its heads'
+xi and z columns of ``w_up`` (xi gathered whole in the group: each head's
+q, k and gates read every channel), q, k and gate columns, core and rows
+of ``w_down``; both sum ``out_norm``'s mean of squares over the group.
+sLSTM splits only its projections by channel and runs its token loop whole
+(see :func:`_slstm_cell`). Where the heads do not divide the group, its
+ranks split them as far as they divide and the rest compute alike.
+
 One deliberate difference: :func:`gla_chunked` masks the exponent of the
 intra-chunk decay before ``exp`` where the reference masks the result. The
 forward values are identical; the masked entries above the diagonal, which
@@ -23,14 +36,15 @@ overflow to inf for strong decay, can no longer turn a gradient into NaN.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from ..dist.sharding import (current_mesh, is_dtensor, local_call, meet,
-                             shard_map_batch, whole_dim)
+from ..dist.sharding import (RowShare, current_mesh, is_dtensor, local_call,
+                             meet, shard_map_batch, whole_dim)
 from .config import ArchConfig
 from .layers import Params, dense_init, normal, rmsnorm, rmsnorm_init
 
@@ -145,6 +159,18 @@ def conv_step(p: Params, x1: torch.Tensor, state: torch.Tensor
     return F.silu(out).to(x1.dtype), window[:, 1:].to(state.dtype)
 
 
+def recurrent_heads(cfg: ArchConfig) -> dict:
+    """``{kind: heads}`` of ``cfg``'s recurrent sub-layers (``mamba2``,
+    ``mlstm``, ``slstm``): what a share group splits (:class:`RowShare`);
+    empty for a family without them."""
+    if cfg.family == "hybrid":
+        return {"mamba2": mamba2_dims(cfg)[1]}
+    if cfg.family == "ssm":
+        kinds = ("mlstm", "slstm") if cfg.xlstm_slstm_every else ("mlstm",)
+        return dict.fromkeys(kinds, cfg.n_heads)
+    return {}
+
+
 # ---------------------------------------------------------------------------
 # Mamba2 block
 # ---------------------------------------------------------------------------
@@ -183,10 +209,10 @@ def mamba2_init(gen, cfg: ArchConfig, dtype, device) -> Params:
     }
 
 
-def _mamba2_split(p: Params, x: torch.Tensor, cfg: ArchConfig):
-    d_inner, heads, n, conv_ch = mamba2_dims(cfg)
-    z, xbc, dt = torch.split(x @ p["w_in"], [d_inner, conv_ch, heads], dim=-1)
-    return z, xbc, dt, (d_inner, heads, n)
+def _mamba2_split(p: Params, x: torch.Tensor, dims):
+    d_inner, heads, n = dims
+    return torch.split(x @ p["w_in"], [d_inner, d_inner + 2 * n, heads],
+                       dim=-1)
 
 
 def _mamba2_core(p, z, xbc, dt, dims, cfg, b, t):
@@ -201,14 +227,54 @@ def _mamba2_core(p, z, xbc, dt, dims, cfg, b, t):
     return q, k, v, v_in, a
 
 
+def _mamba2_heads(p: Params, dims, group: RowShare):
+    """A Mamba2 layer's params cut to this rank's heads of ``group``, and
+    their dims: ``w_in``'s z, x and dt columns of its heads beside the
+    B and C columns every head reads, the conv's x channels beside B and
+    C, its heads' ``a_log``, ``dt_bias``, ``d_skip``, and its channels of
+    ``out_norm`` and rows of ``w_out``."""
+    d_inner, heads, n = dims
+    ways, k = group.heads(heads)
+    di, h = d_inner // ways, heads // ways
+    c, hs = slice(k * di, (k + 1) * di), slice(k * h, (k + 1) * h)
+    w, conv = p["w_in"], p["conv"]["w"]
+    w_in = torch.cat([w[:, c], w[:, d_inner:][:, c],
+                      w[:, 2 * d_inner:2 * d_inner + 2 * n],
+                      w[:, 2 * d_inner + 2 * n:][:, hs]], dim=1)
+    return dict(p, w_in=w_in,
+                conv={"w": torch.cat([conv[:, c], conv[:, d_inner:]], 1)},
+                a_log=p["a_log"][hs], dt_bias=p["dt_bias"][hs],
+                d_skip=p["d_skip"][hs],
+                out_norm={"scale": p["out_norm"]["scale"][c]},
+                w_out=p["w_out"][c]), (di, h, n)
+
+
+def _rmsnorm_heads(group: RowShare, width: int, p: Params, x: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """:func:`rmsnorm` over ``width`` channels of which ``x`` holds this
+    rank's: the mean of squares sums the group's (one all-gather)."""
+    xf = x.float()
+    var = group.gather(xf.square().sum(dim=-1, keepdim=True)).sum(0) / width
+    out = xf * torch.rsqrt(var + eps)
+    return (out * p["scale"].float()).to(x.dtype)
+
+
 def mamba2_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                 cache: Optional[Mamba2Cache] = None
+                 cache: Optional[Mamba2Cache] = None,
+                 group: Optional[RowShare] = None
                  ) -> Tuple[torch.Tensor, Optional[Mamba2Cache]]:
     """x (B,T,D) -> (the layer's output, to be added to x; the new cache).
-    With a cache and T == 1 the recurrent step, else the chunked SSD."""
+    With a cache and T == 1 the recurrent step, else the chunked SSD. With
+    ``group`` (no cache) this rank's heads of it, and its share of the
+    output."""
     b, t, _ = x.shape
+    d_inner, heads, n, _ = mamba2_dims(cfg)
+    dims, out_norm = (d_inner, heads, n), rmsnorm
+    if group is not None:
+        p, dims = _mamba2_heads(p, dims, group)
+        out_norm = functools.partial(_rmsnorm_heads, group, d_inner)
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    z, xbc, dt, dims = _mamba2_split(p, xn, cfg)
+    z, xbc, dt = _mamba2_split(p, xn, dims)
     if cache is not None and t == 1:           # decode: O(1) recurrent step
         xbc1, conv_state = conv_step(p["conv"], xbc, cache.conv)
         q, k, v, v_in, a = _mamba2_core(p, z, xbc1, dt, dims, cfg, b, t)
@@ -227,7 +293,7 @@ def mamba2_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
             new_cache = Mamba2Cache(conv=tail.to(cache.conv.dtype), ssd=st.s)
     y = y + v * p["d_skip"][None, None, :, None].to(v.dtype)
     y = y.reshape(b, t, dims[0])
-    y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
+    y = out_norm(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
     return (y @ p["w_out"]).to(x.dtype), new_cache
 
 
@@ -277,38 +343,72 @@ def mlstm_init(gen, cfg: ArchConfig, dtype, device) -> Params:
     }
 
 
-def _mlstm_qkv(p, xi, cfg, b, t):
-    d_inner, heads, n, pdim = mlstm_dims(cfg)
+def _mlstm_qkv(p, xi, xv, dims, b, t):
+    d_inner, heads, n, pdim = dims
     q = (xi @ p["w_q"]).reshape(b, t, heads, n) / math.sqrt(n)
     k = (xi @ p["w_k"]).reshape(b, t, heads, n) / math.sqrt(n)
-    v = xi.reshape(b, t, heads, pdim)
+    v = xv.reshape(b, t, heads, pdim)
     gates = (xi @ p["w_if"]).float().reshape(b, t, heads, 2)
     i_g = torch.sigmoid(gates[..., 0])
     f_g = torch.sigmoid(gates[..., 1] + 2.0)    # bias toward remember
     i_v = i_g[..., None].to(v.dtype)
     ones = torch.ones((b, t, heads, 1), dtype=v.dtype, device=v.device)
     v_aug = torch.cat([v * i_v, ones * i_v], dim=-1)
-    return q, k, v_aug, f_g, (d_inner, heads, n, pdim)
+    return q, k, v_aug, f_g
 
 
-def _mlstm_out(y_aug, z, p, cfg, b, t, dims):
+def _mlstm_out(y_aug, z, p, cfg, b, t, dims, norm=rmsnorm):
     d_inner, heads, n, pdim = dims
-    y, norm = y_aug[..., :pdim], y_aug[..., pdim:]
-    y = y / norm.abs().clamp_min(1.0)
+    y, norm_col = y_aug[..., :pdim], y_aug[..., pdim:]
+    y = y / norm_col.abs().clamp_min(1.0)
     y = y.reshape(b, t, d_inner)
-    y = rmsnorm(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
+    y = norm(p["out_norm"], y, cfg.norm_eps) * F.silu(z)
     return y @ p["w_down"]
 
 
+def _mlstm_heads(p: Params, xn: torch.Tensor, cfg: ArchConfig,
+                 group: RowShare) -> torch.Tensor:
+    """The train-time mLSTM on this rank's heads of ``group``: from
+    ``w_up`` its heads' xi and z columns only; xi gathered whole in the
+    group (each head's q, k and gates read every channel); its heads'
+    ``w_q``, ``w_k`` and ``w_if`` columns, core and ``out_norm`` channels
+    (the mean of squares summed over the group), its rows of ``w_down``:
+    its share of the output."""
+    b, t, _ = xn.shape
+    d_inner, heads, n, pdim = mlstm_dims(cfg)
+    ways, k = group.heads(heads)
+    di, h = d_inner // ways, heads // ways
+    c, hn = slice(k * di, (k + 1) * di), slice(k * h * n, (k + 1) * h * n)
+    w = p["w_up"]
+    xi, z = torch.split(xn @ torch.cat([w[:, c], w[:, d_inner:][:, c]], 1),
+                        di, dim=-1)
+    whole = group.gather(xi).movedim(0, -2).flatten(-2)       # (B,T,d_inner)
+    p = dict(p, w_q=p["w_q"][:, hn], w_k=p["w_k"][:, hn],
+             w_if=p["w_if"][:, 2 * k * h:2 * (k + 1) * h],
+             out_norm={"scale": p["out_norm"]["scale"][c]},
+             w_down=p["w_down"][c])
+    dims = (di, h, n, pdim)
+    q, kk, v_aug, f_g = _mlstm_qkv(p, whole, xi, dims, b, t)
+    y_aug, _ = gla_chunked(q, kk, v_aug, f_g, cfg.ssm_chunk)
+    return _mlstm_out(y_aug, z, p, cfg, b, t, dims,
+                      functools.partial(_rmsnorm_heads, group, d_inner))
+
+
 def mlstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                cache: Optional[MLSTMCache] = None
+                cache: Optional[MLSTMCache] = None,
+                group: Optional[RowShare] = None
                 ) -> Tuple[torch.Tensor, Optional[MLSTMCache]]:
     """x (B,T,D) -> (the layer's output, to be added to x; the new cache).
-    With a cache and T == 1 the recurrent step, else the chunked core."""
+    With a cache and T == 1 the recurrent step, else the chunked core.
+    With ``group`` (no cache) this rank's heads of it, and its share of
+    the output."""
     b, t, _ = x.shape
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
+    if group is not None:
+        return _mlstm_heads(p, xn, cfg, group).to(x.dtype), None
     xi, z = torch.chunk(xn @ p["w_up"], 2, dim=-1)
-    q, k, v_aug, f_g, dims = _mlstm_qkv(p, xi, cfg, b, t)
+    dims = mlstm_dims(cfg)
+    q, k, v_aug, f_g = _mlstm_qkv(p, xi, xi, dims, b, t)
     if cache is not None and t == 1:           # decode
         y_aug, st = gla_step(q, k, v_aug, f_g, GLAState(cache.s))
         new_cache = MLSTMCache(st.s)
@@ -367,6 +467,10 @@ def _slstm_cell(p, cfg, pre, state: SLSTMCache
     # the heads' recurrence reads each head's whole h: a state split on its
     # channels over a mesh is gathered there (B x d_inner f32)
     hh = whole_dim(state.h, 1).reshape(b, heads, dh)
+    # head h's 4 dh outputs lie side by side, so chunk g of z, i, f, o
+    # below is head g's recurrence over every channel (with 4 heads): every
+    # channel's gates read every head's state, and the loop cannot split by
+    # head. A rank that shares a row's heads runs it whole (slstm_apply).
     rec = torch.einsum("bhd,hdg->bhg", hh.float(),
                        p["r"].float()).reshape(b, 4 * d_inner)
     z, i, f, o = torch.chunk(pre.float() + rec, 4, dim=-1)
@@ -392,13 +496,26 @@ def _slstm_scan(p, cfg, pre, state: SLSTMCache
 
 
 def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
-                cache: Optional[SLSTMCache] = None
+                cache: Optional[SLSTMCache] = None,
+                group: Optional[RowShare] = None
                 ) -> Tuple[torch.Tensor, Optional[SLSTMCache]]:
     """x (B,T,D) -> (the layer's output, to be added to x; the new cache,
-    None without one): one cell per token."""
+    None without one): one cell per token. With ``group`` (no cache) this
+    rank's channels of z, i, f and o from ``w_in``, gathered whole in the
+    group before the loop, which runs whole, and its rows of ``w_out``:
+    its share of the output."""
     b, t, _ = x.shape
     xn = rmsnorm(p["norm"], x, cfg.norm_eps)
-    pre = xn @ p["w_in"]                                   # (B,T,4*d_inner)
+    if group is None:
+        pre = xn @ p["w_in"]                               # (B,T,4*d_inner)
+    else:
+        d_inner = cfg.ssm_expand * cfg.d_model
+        ways, k = group.heads(cfg.n_heads)
+        di = d_inner // ways
+        c = slice(k * di, (k + 1) * di)
+        w = p["w_in"].unflatten(1, (4, d_inner))[:, :, c].flatten(1)
+        pre = group.gather((xn @ w).unflatten(-1, (4, di)))
+        pre = pre.permute(1, 2, 3, 0, 4).flatten(2)        # (B,T,4*d_inner)
     state = cache if cache is not None else slstm_cache_init(cfg, b, x.device)
     p = dict(p, r=p["r"].float())        # cast once, not at every token
     if t == 1:
@@ -414,7 +531,7 @@ def slstm_apply(p: Params, x: torch.Tensor, cfg: ArchConfig,
                 dict(p, r=r), cfg, pre, SLSTMCache(c, n, h)),
             pre, *state, whole=(p["r"],))
     y = rmsnorm(p["out_norm"], hs.to(x.dtype), cfg.norm_eps)
-    out = y @ p["w_out"]
+    out = y @ p["w_out"] if group is None else y[..., c] @ p["w_out"][c]
     return out.to(x.dtype), (state if cache is not None else None)
 
 

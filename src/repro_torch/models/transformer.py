@@ -311,11 +311,13 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
 
     def recurrent(apply, pl, x, cache):
         if in_stream(x):
-            # the plain layer on each rank's rows, its weights whole
+            # the plain layer on each rank's rows (or its share of their
+            # heads, where ranks share them), its weights whole
             flat = [use_weight(w, None) for _, w in leaves(pl)]
             xr = entering(x, rows=True)
             dx = shard_call(
-                lambda _, xl, *ws: apply(rebuild(pl, iter(ws)), xl, cfg)[0],
+                lambda group, xl, *ws: apply(rebuild(pl, iter(ws)), xl, cfg,
+                                             group=group)[0],
                 xr.placements, xr, *flat, rows=True)
             return x + rejoin(x, dx)
         dx, new = apply(pl, x, cfg, cache=cache)

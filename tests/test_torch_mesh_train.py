@@ -21,9 +21,14 @@ mLSTM and sLSTM layers run on each rank's one row, the batch split over
 both axes, as plain tensors, their weights whole, with their gradients
 summed over the ranks' rows). Four more hold a batch of 2 rows, which do
 not divide over both axes, for xlstm and for zamba2 (the shared attention
-beside Mamba2 layers): on (2, 2) their recurrent layers run on each data
-rank's one row, whole over ``model``; on a (1, 4) mesh the 2 rows are cut
-into 2 parts of one row, each run by 2 ``model`` ranks and gathered. The
+beside Mamba2 layers): on (2, 2) the 2 ``model`` ranks of each data rank
+share its one row, each taking half of every recurrent layer's heads; on a
+(1, 4) mesh the 2 rows are cut into 2 parts of one row, each shared so by 2
+``model`` ranks, the parts' outputs summed and gathered. Three hold one
+row on (1, 4), shared by all 4 ranks: xlstm's 4 heads and zamba2's 8
+split 4 ways, and xlstm with 2 heads splits them 2 ways, each pair of
+ranks computing the same heads. Each rank records the share and the ways
+of every recurrent layer it ran. The
 gradients ``opt.update``
 receives already hold their moments' placements: the mesh step
 reduce-scatters them there before the clip.
@@ -52,12 +57,25 @@ CASES = {"dense": ("granite-3-8b", {}),
          "ssm_two_rows": ("xlstm-1.3b", {}),
          "hybrid_two_rows": ("zamba2-2.7b", {}),
          "ssm_rows_in_parts": ("xlstm-1.3b", {}),
-         "hybrid_rows_in_parts": ("zamba2-2.7b", {})}
+         "hybrid_rows_in_parts": ("zamba2-2.7b", {}),
+         "ssm_one_row": ("xlstm-1.3b", {}),
+         "hybrid_one_row": ("zamba2-2.7b", {}),
+         "ssm_one_row_two_heads": ("xlstm-1.3b", {"n_heads": 2})}
 # the batch's rows (4 split over data and model together) and the mesh
 ROWS = {"ssm_two_rows": 2, "hybrid_two_rows": 2, "ssm_rows_in_parts": 2,
-        "hybrid_rows_in_parts": 2}
-SHAPE = {"ssm_rows_in_parts": (1, 4), "hybrid_rows_in_parts": (1, 4)}
+        "hybrid_rows_in_parts": 2, "ssm_one_row": 1, "hybrid_one_row": 1,
+        "ssm_one_row_two_heads": 1}
+SHAPE = {"ssm_rows_in_parts": (1, 4), "hybrid_rows_in_parts": (1, 4),
+         "ssm_one_row": (1, 4), "hybrid_one_row": (1, 4),
+         "ssm_one_row_two_heads": (1, 4)}
+# (share, ways) of each recurrent layer: the model ranks that share a row,
+# and over how many of them its heads split (the rest duplicate)
+SHARE = {"ssm_two_rows": (2, 2), "hybrid_two_rows": (2, 2),
+         "ssm_rows_in_parts": (2, 2), "hybrid_rows_in_parts": (2, 2),
+         "ssm_one_row": (4, 4), "hybrid_one_row": (4, 4),
+         "ssm_one_row_two_heads": (4, 2)}
 RECURRENT = ("mamba2_apply", "mlstm_apply", "slstm_apply")
+KINDS = ("ssm",)       # the other cases with recurrent layers
 PROFILES = ("tp", "fsdp_tp")
 # AdamW's first step moves a param by ~lr wherever |g| >> eps, whatever |g|:
 # at lr 1e-4 the rounding of near-zero gradients stays inside the bound,
@@ -99,10 +117,14 @@ def rank_main(rank, init_file, out_dir):
     applies = {k: getattr(ssm, k) for k in RECURRENT}
 
     def spy_apply(kind):
-        # a recurrent sub-layer: the type and shape of the x it was given
+        # a recurrent sub-layer: the type and shape of the x it was given,
+        # the ranks that shared it and the ways its heads split
         def apply(p, x, cfg, **kw):
-            recurrent.append((type(x).__name__, tuple(x.shape)))
-            return applies[kind](p, x, cfg, **kw)
+            out = applies[kind](p, x, cfg, **kw)
+            group = kw.get("group")
+            recurrent.append((type(x).__name__, tuple(x.shape)) + (
+                (group.share, group.ways) if group else (1, 1)))
+            return out
         return apply
 
     def spy(ocfg, grads, state, params, **kw):
@@ -184,9 +206,13 @@ def test_mesh_step_equals_the_plain_step(ranks, case, profile):
         assert r["held"]["m"] < whole / 2, (rank, r["held"])
         if case in ROWS:
             # each data rank's one row, or each rank's part of its two, as
-            # a plain tensor
-            assert r["recurrent"] == {("Tensor", (1, 24, cfg.d_model))}, (
-                rank, r["recurrent"])
+            # a plain tensor, its heads split over the ranks that share it
+            assert r["recurrent"] == {("Tensor", (1, 24, cfg.d_model))
+                                      + SHARE[case]}, (rank, r["recurrent"])
+        elif case in KINDS:
+            # a rank's own row: no ranks share it
+            assert r["recurrent"] == {("Tensor", (1, 24, cfg.d_model), 1,
+                                       1)}, (rank, r["recurrent"])
         loss, want_loss = float(r["metrics"]["loss"]), float(wm["loss"])
         assert abs(loss - want_loss) <= RTOL * abs(want_loss), (rank, loss,
                                                                  want_loss)

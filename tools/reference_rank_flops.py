@@ -1,6 +1,7 @@
 """One device's share of a train cell in the JAX reference, as XLA compiles it.
 
-Builds a ``("data", "model")`` mesh of host CPU devices with Auto axes
+Builds a ``("data", "model")`` mesh of host CPU devices (``("pod", "data",
+"model")`` for a 3-D ``--mesh`` such as ``2x16x16``) with Auto axes
 (``jax.make_mesh`` defaults to Explicit axes, under which the reference
 trainer's ``with_sharding_constraint`` raises), compiles
 ``repro.launch.specs.make_cell(arch, shape, mesh)`` and counts the
@@ -16,6 +17,8 @@ Usage (one JSON line per mesh on stdout)::
       --mesh 1x1 --mesh 4x4
   PYTHONPATH=src python tools/reference_rank_flops.py --arch granite-3-8b \\
       --mesh 16x16
+  PYTHONPATH=src python tools/reference_rank_flops.py --arch zamba2-2.7b \\
+      --layers 6 --mesh 2x16x16
 """
 
 from __future__ import annotations
@@ -27,17 +30,22 @@ import os
 import sys
 import time
 
+AXES = {2: ("data", "model"), 3: ("pod", "data", "model")}
+
 
 def main() -> None:
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", required=True)
     ap.add_argument("--shape", default="train_4k")
     ap.add_argument("--mesh", action="append", required=True,
-                    help="data x model, as 4x4; repeat for several")
+                    help="data x model, as 4x4, or pod x data x model, as "
+                         "2x16x16; repeat for several")
     ap.add_argument("--layers", type=int, default=0,
                     help="depth to cut the arch to (0: published)")
     args = ap.parse_args()
     meshes = [tuple(int(s) for s in m.split("x")) for m in args.mesh]
+    if any(len(m) not in AXES for m in meshes):
+        ap.error("--mesh takes 2 or 3 dims, as 4x4 or 2x16x16")
     os.environ["XLA_FLAGS"] = (os.environ.get("XLA_FLAGS", "") +
                                " --xla_force_host_platform_device_count="
                                f"{max(math.prod(m) for m in meshes)}")
@@ -58,8 +66,8 @@ def main() -> None:
             config.get_arch(args.arch), name=name, n_layers=args.layers))
     for shape in meshes:
         t0 = time.perf_counter()
-        mesh = jax.make_mesh(shape, ("data", "model"),
-                             axis_types=(AxisType.Auto,) * 2)
+        mesh = jax.make_mesh(shape, AXES[len(shape)],
+                             axis_types=(AxisType.Auto,) * len(shape))
         cell = specs.make_cell(name, args.shape, mesh)
         with mesh:
             step = jax.jit(cell.fn, in_shardings=cell.in_shardings,
