@@ -1,0 +1,5 @@
+"""``torch.cuda.max_memory_allocated()`` over the window, in GB."""
+
+
+def read(run):
+    return run.peak_window_bytes / 1e9 if run.peak_window_bytes else None
