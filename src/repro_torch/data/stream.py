@@ -48,6 +48,7 @@ from typing import (Any, Callable, Dict, Iterator, List, Optional, Sequence,
 import numpy as np
 import torch
 
+from .. import obs
 from ..core.encodings.base import header_dtype, header_shape
 from ..core.store import DeltaTensorStore, VersionArg
 from ..lake.device import resolve_device, torch_dtype
@@ -339,19 +340,22 @@ class StreamLoader:
         not the executor.
         """
         while not self.closed and self._in_range(self._cursor):
-            while len(self._pending) < self.window and self._in_range(self._head):
-                self._submit(self._head)
-                self._head = self._advance(self._head)
-            cur = self._cursor
-            fut, t_submit, rows = self._pending.pop(cur)
-            data, t_done = fut.result()
-            self.inflight_bytes -= self.batch_bytes
-            # submit -> ready: the consumer-visible fetch latency of this
-            # batch (virtual seconds when clock= is a modeled store's)
-            self.batch_latency.observe(t_done - t_submit)
-            self.batches_yielded += 1
-            epoch, step = cur
-            self._cursor = self._advance(cur)
+            # the consumer's request to the batch it gets (host time only)
+            with obs.span("loader.next", device=False):
+                while (len(self._pending) < self.window
+                       and self._in_range(self._head)):
+                    self._submit(self._head)
+                    self._head = self._advance(self._head)
+                cur = self._cursor
+                fut, t_submit, rows = self._pending.pop(cur)
+                data, t_done = fut.result()
+                self.inflight_bytes -= self.batch_bytes
+                # submit -> ready: the consumer-visible fetch latency of this
+                # batch (virtual seconds when clock= is a modeled store's)
+                self.batch_latency.observe(t_done - t_submit)
+                self.batches_yielded += 1
+                epoch, step = cur
+                self._cursor = self._advance(cur)
             yield {"data": data,
                    "samples": rows,
                    "epoch": epoch,

@@ -15,6 +15,7 @@ from typing import Any, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from . import block_gather as _gather
 from . import block_norms as _norms
 from . import block_scatter as _bscatter
@@ -67,8 +68,9 @@ def topk_ids(norms: torch.Tensor, k: int) -> torch.Tensor:
     k = int(k)
     if not 0 <= k <= norms.numel():
         raise ValueError(f"k={k} outside [0, {norms.numel()}]")
-    order = torch.sort(norms, descending=True, stable=True).indices[:k]
-    return order.to(torch.int32)
+    with obs.span("compress.select"):
+        order = torch.sort(norms, descending=True, stable=True).indices[:k]
+        return order.to(torch.int32)
 
 
 def coo_scatter(flat_idx: torch.Tensor, values: torch.Tensor, size: int, *,

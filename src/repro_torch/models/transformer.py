@@ -42,6 +42,7 @@ import torch
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
+from .. import obs
 from ..dist.sharding import (constrain, entering, in_stream, per_op,
                              rejoin, shard_call, stream, use_weight,
                              whole_dim)
@@ -327,7 +328,13 @@ def _run_stack(params: Params, cfg: ArchConfig, x: torch.Tensor, positions,
         return x + dx
 
     def super_block(x, i):
-        """Super-block ``i`` over ``x``: (x', its aux loss or None)."""
+        """Super-block ``i`` over ``x``: (x', its aux loss or None), in a
+        span that a checkpoint's recompute opens again inside the backward
+        pass."""
+        with obs.span("model.superblock"):
+            return block(x, i)
+
+    def block(x, i):
         if fam in ("dense", "moe"):
             cache = None
             if use_cache:
@@ -531,7 +538,10 @@ def loss_fn(params: Params, cfg: ArchConfig, batch: Dict[str, torch.Tensor]
                           image_embeds=batch.get("image_embeds"),
                           encoder_frames=batch.get("encoder_frames"))
     table = params["embed"] if cfg.tie_embeddings else params["unembed"]
-    loss = _chunked_ce(h, table, cfg.tie_embeddings, batch["labels"])
+    with obs.span("train.loss"):
+        # the backward pass from the loss's gradient to h's in a span too
+        h, mark = obs.backward_span("train.loss.backward", h)
+        loss = mark(_chunked_ce(h, table, cfg.tie_embeddings, batch["labels"]))
     return loss + 0.01 * aux, {"loss": loss, "aux": aux}
 
 

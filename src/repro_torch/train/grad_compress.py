@@ -42,6 +42,7 @@ from typing import Any, Dict, NamedTuple, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..kernels import ops
 from ..lake.device import to_torch
 from ..tree import leaves as _leaves, rebuild as _rebuild, tree_map
@@ -110,41 +111,42 @@ def compressed_grad_mean(grads_podwise: Any, residuals: Any, *,
     call this with the same tree structure and shapes (collectives run
     leaf by leaf).
     """
-    stats: Dict[str, Any] = {"sent_bytes": 0, "dense_bytes": 0}
-    payload = {}
-    g_leaves = _leaves(grads_podwise)
-    r_leaves = _leaves(residuals)
-    if [p for p, _ in g_leaves] != [p for p, _ in r_leaves]:
-        raise ValueError("residuals do not have the structure of the grads")
-    first = 0
-    if group is not None:
-        import torch.distributed as dist
-        first = dist.get_rank(group) * g_leaves[0][1].shape[0]
-    means, new_rs = [], []
-    for (path, g), (_, r) in zip(g_leaves, r_leaves):
-        e = g.to(torch.float32) + r
-        local = e.shape[0]
-        ids, blocks, x2_shape, _ = _compress_leaf(e, ratio, block)
-        if group is not None:   # the exchange: only the payload crosses
-            ids, blocks = gather_pods(ids, group), gather_pods(blocks, group)
-        pods = ids.shape[0]
-        decoded = torch.zeros((pods,) + x2_shape, dtype=torch.float32,
-                              device=e.device)
-        for p in range(pods):
-            ops.block_scatter(decoded[p], ids[p], blocks[p], inplace=True)
-        means.append(decoded.sum(dim=0).div_(pods).reshape(g.shape[1:]))
-        ev = e.view((local,) + x2_shape)
-        ev.sub_(decoded[first:first + local])
-        new_rs.append(e)
-        stats["sent_bytes"] += int(ids.numel() * 4 + blocks.numel() * 4)
-        stats["dense_bytes"] += int(e.numel() // local * pods * 4)
+    with obs.span("compress"):
+        stats: Dict[str, Any] = {"sent_bytes": 0, "dense_bytes": 0}
+        payload = {}
+        g_leaves = _leaves(grads_podwise)
+        r_leaves = _leaves(residuals)
+        if [p for p, _ in g_leaves] != [p for p, _ in r_leaves]:
+            raise ValueError("residuals do not have the structure of the grads")
+        first = 0
+        if group is not None:
+            import torch.distributed as dist
+            first = dist.get_rank(group) * g_leaves[0][1].shape[0]
+        means, new_rs = [], []
+        for (path, g), (_, r) in zip(g_leaves, r_leaves):
+            e = g.to(torch.float32) + r
+            local = e.shape[0]
+            ids, blocks, x2_shape, _ = _compress_leaf(e, ratio, block)
+            if group is not None:   # the exchange: only the payload crosses
+                ids, blocks = gather_pods(ids, group), gather_pods(blocks, group)
+            pods = ids.shape[0]
+            decoded = torch.zeros((pods,) + x2_shape, dtype=torch.float32,
+                                  device=e.device)
+            for p in range(pods):
+                ops.block_scatter(decoded[p], ids[p], blocks[p], inplace=True)
+            means.append(decoded.sum(dim=0).div_(pods).reshape(g.shape[1:]))
+            ev = e.view((local,) + x2_shape)
+            ev.sub_(decoded[first:first + local])
+            new_rs.append(e)
+            stats["sent_bytes"] += int(ids.numel() * 4 + blocks.numel() * 4)
+            stats["dense_bytes"] += int(e.numel() // local * pods * 4)
+            if with_payload:
+                payload[path] = (ids, blocks)
+            del decoded, ids, blocks
         if with_payload:
-            payload[path] = (ids, blocks)
-        del decoded, ids, blocks
-    if with_payload:
-        stats["payload"] = payload
-    return (_rebuild(grads_podwise, iter(means)),
-            _rebuild(grads_podwise, iter(new_rs)), stats)
+            stats["payload"] = payload
+        return (_rebuild(grads_podwise, iter(means)),
+                _rebuild(grads_podwise, iter(new_rs)), stats)
 
 
 def init_residuals(grads_podwise: Any) -> Any:

@@ -22,6 +22,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 
 import torch
 
+from .. import obs
 from ..dist.sharding import laid_out_as
 from ..tree import leaves, tree_map
 
@@ -97,30 +98,31 @@ def update(cfg: OptConfig, grads: Any, state: OptState, params: Any, *,
     differently from their moments (ZeRO-1): each gradient is moved to its
     moments' placements (the mesh step has done so before the call), and
     each step to its param's."""
-    gnorm = global_norm(grads) if grad_norm is None else grad_norm
-    scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
-    count = state.count + 1
-    lr = schedule(cfg, count)
-    b1c = 1 - torch.pow(cfg.b1, count.to(torch.float32))
-    b2c = 1 - torch.pow(cfg.b2, count.to(torch.float32))
-    g_leaves, m_leaves, v_leaves = (leaves(t) for t in (grads, state.m, state.v))
-    p_leaves = leaves(params)
-    if not ([n for n, _ in g_leaves] == [n for n, _ in m_leaves]
-            == [n for n, _ in v_leaves] == [n for n, _ in p_leaves]):
-        raise ValueError("grads, moments and params differ in structure")
-    for (_, g), (_, m), (_, v), (_, p) in zip(g_leaves, m_leaves, v_leaves,
-                                              p_leaves):
-        g32 = laid_out_as(g.to(torch.float32, copy=True).mul_(scale), m)
-        m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
-        v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
-        step = torch.div(m, b1c, out=g32)
-        den = torch.div(v, b2c).sqrt_().add_(cfg.eps)
-        step.div_(den)
-        del den
-        step = laid_out_as(step, p)
-        if p.ndim >= 2:  # decoupled weight decay on matrices only
-            step.add_(p, alpha=cfg.weight_decay)
-        # p - lr * step in f32, then rounded to the param dtype
-        p.copy_(step.mul_(lr).neg_().add_(p))
-    return params, OptState(m=state.m, v=state.v, count=count), {
-        "lr": lr, "grad_norm": gnorm}
+    with obs.span("optimizer.update"):
+        gnorm = global_norm(grads) if grad_norm is None else grad_norm
+        scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-9), max=1.0)
+        count = state.count + 1
+        lr = schedule(cfg, count)
+        b1c = 1 - torch.pow(cfg.b1, count.to(torch.float32))
+        b2c = 1 - torch.pow(cfg.b2, count.to(torch.float32))
+        g_leaves, m_leaves, v_leaves = (leaves(t) for t in (grads, state.m, state.v))
+        p_leaves = leaves(params)
+        if not ([n for n, _ in g_leaves] == [n for n, _ in m_leaves]
+                == [n for n, _ in v_leaves] == [n for n, _ in p_leaves]):
+            raise ValueError("grads, moments and params differ in structure")
+        for (_, g), (_, m), (_, v), (_, p) in zip(g_leaves, m_leaves, v_leaves,
+                                                  p_leaves):
+            g32 = laid_out_as(g.to(torch.float32, copy=True).mul_(scale), m)
+            m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
+            v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
+            step = torch.div(m, b1c, out=g32)
+            den = torch.div(v, b2c).sqrt_().add_(cfg.eps)
+            step.div_(den)
+            del den
+            step = laid_out_as(step, p)
+            if p.ndim >= 2:  # decoupled weight decay on matrices only
+                step.add_(p, alpha=cfg.weight_decay)
+            # p - lr * step in f32, then rounded to the param dtype
+            p.copy_(step.mul_(lr).neg_().add_(p))
+        return params, OptState(m=state.m, v=state.v, count=count), {
+            "lr": lr, "grad_norm": gnorm}

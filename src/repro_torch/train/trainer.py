@@ -40,6 +40,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from .. import obs
 from ..dist import sharding as shd
 from ..models import transformer
 from ..models.config import ArchConfig
@@ -80,8 +81,10 @@ def _grads(loss_of, params: Any) -> Tuple[Any, Any, Any]:
     differentiated through aliases, so ``params`` never requires grad."""
     flat = [p.detach().requires_grad_() for _, p in leaves(params)]
     with torch.enable_grad():
-        value, aux = loss_of(rebuild(params, iter(flat)))
-        grads = torch.autograd.grad(value, flat)
+        with obs.span("train.forward"):
+            value, aux = loss_of(rebuild(params, iter(flat)))
+        with obs.span("train.backward"):
+            grads = torch.autograd.grad(value, flat)
     return value.detach(), aux, rebuild(params, iter(grads))
 
 
@@ -129,11 +132,13 @@ def make_train_step(cfg: ArchConfig, ocfg: opt.OptConfig,
     tensors, the same on every rank."""
     def train_step(state: TrainState, batch: Dict[str, torch.Tensor]
                    ) -> Tuple[TrainState, Dict[str, torch.Tensor]]:
-        total, metrics, grads = _grads(
-            lambda p: transformer.loss_fn(p, cfg, batch), state.params)
-        if mesh is not None:
-            grads = _laid_out_as_moments(grads, state.opt.m)
-        params, new_opt, om = opt.update(ocfg, grads, state.opt, state.params)
+        with obs.step():
+            total, metrics, grads = _grads(
+                lambda p: transformer.loss_fn(p, cfg, batch), state.params)
+            if mesh is not None:
+                grads = _laid_out_as_moments(grads, state.opt.m)
+            params, new_opt, om = opt.update(ocfg, grads, state.opt,
+                                             state.params)
         metrics = {k: v.detach() for k, v in metrics.items()}
         return TrainState(params=params, opt=new_opt, step=state.step + 1), \
             dict(metrics, **om, total=total)
@@ -213,42 +218,43 @@ def make_compressed_train_step(cfg: ArchConfig, ocfg: opt.OptConfig,
         return total / n_pods, total
 
     def train_step(state: CompressedTrainState, batch: Dict[str, torch.Tensor]):
-        flat = leaves(state.params)
-        n_local = flat[0][1].shape[0]
-        n_pods = n_local * world
-        grads = tree_map(torch.empty_like, state.params)
-        g_flat = [g for _, g in leaves(grads)]
-        losses = []
-        for i in range(n_local):
-            # pods share no param, so each pod's backward is its own
-            pod_params = rebuild(state.params, iter([p[i] for _, p in flat]))
-            pod_batch = {k: v[i] for k, v in batch.items()}
-            _, total, g_i = _grads(lambda p: _scaled_total(p, pod_batch, n_pods),
-                                   pod_params)
-            for dst, (_, src) in zip(g_flat, leaves(g_i)):
-                dst[i].copy_(src)
-            losses.append(total.detach())
-            del g_i
-        losses = torch.stack(losses)
-        if group is not None:
-            losses = grad_compress.gather_pods(losses, group)
-        loss = losses.mean()
-        mean_g, new_res, stats = grad_compress.compressed_grad_mean(
-            grads, state.residual, ratio=ratio, group=group)
-        del grads
-        # the clip's norm is over every pod's copy of the mean, as the
-        # reference's podded gradient has them, on a rank of a group too
-        norm = opt.global_norm(tree_map(
-            lambda g: g[None].expand((n_pods,) + g.shape), mean_g))
-        podded_g = tree_map(lambda g: g[None].expand((n_local,) + g.shape),
-                            mean_g)
-        params, new_opt, om = opt.update(ocfg, podded_g, state.opt,
-                                         state.params, grad_norm=norm)
-        metrics = dict(om, loss=loss, wire_ratio=(
-            grad_compress.compression_ratio_bytes(stats)))
-        return CompressedTrainState(params=params, opt=new_opt,
-                                    residual=new_res,
-                                    step=state.step + 1), metrics
+        with obs.step():
+            flat = leaves(state.params)
+            n_local = flat[0][1].shape[0]
+            n_pods = n_local * world
+            grads = tree_map(torch.empty_like, state.params)
+            g_flat = [g for _, g in leaves(grads)]
+            losses = []
+            for i in range(n_local):
+                # pods share no param, so each pod's backward is its own
+                pod_params = rebuild(state.params, iter([p[i] for _, p in flat]))
+                pod_batch = {k: v[i] for k, v in batch.items()}
+                _, total, g_i = _grads(lambda p: _scaled_total(p, pod_batch, n_pods),
+                                       pod_params)
+                for dst, (_, src) in zip(g_flat, leaves(g_i)):
+                    dst[i].copy_(src)
+                losses.append(total.detach())
+                del g_i
+            losses = torch.stack(losses)
+            if group is not None:
+                losses = grad_compress.gather_pods(losses, group)
+            loss = losses.mean()
+            mean_g, new_res, stats = grad_compress.compressed_grad_mean(
+                grads, state.residual, ratio=ratio, group=group)
+            del grads
+            # the clip's norm is over every pod's copy of the mean, as the
+            # reference's podded gradient has them, on a rank of a group too
+            norm = opt.global_norm(tree_map(
+                lambda g: g[None].expand((n_pods,) + g.shape), mean_g))
+            podded_g = tree_map(lambda g: g[None].expand((n_local,) + g.shape),
+                                mean_g)
+            params, new_opt, om = opt.update(ocfg, podded_g, state.opt,
+                                             state.params, grad_norm=norm)
+            metrics = dict(om, loss=loss, wire_ratio=(
+                grad_compress.compression_ratio_bytes(stats)))
+            return CompressedTrainState(params=params, opt=new_opt,
+                                        residual=new_res,
+                                        step=state.step + 1), metrics
 
     return train_step
 
