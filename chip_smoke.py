@@ -19,7 +19,11 @@ Phases, each of which exits non-zero on failure:
    held to ``rtol = atol = 1e-6``, and ``block_norms`` of non-dyadic data
    (positive f32 terms summed in another order), held to ``rtol = 1e-5,
    atol = 0``; ``block_norms`` of dyadic data (small integers / 8) must be
-   exact;
+   exact; ``adamw`` (the optimizer's fused step) over ragged and misaligned
+   sizes, a g broadcast over 2 pods, bf16, f16 and f32 p, g in p's dtype and
+   in f32, decay on and off, and at the main path's (10, 4096, 12800) with
+   bf16 p and bf16 or f32 g: m and v within ``rtol = 1e-6`` of the plain
+   version's, p within one ulp of its dtype and 99.9 % of it equal;
 3. time each kernel at the main path's shapes with CUDA events (the median
    of 5 samples, each the mean of back-to-back calls, with their min and
    max; ``unshuffle`` and ``block_gather`` in samples alternating with
@@ -33,7 +37,9 @@ Phases, each of which exits non-zero on failure:
    the same bytes, and its split (H2D, kernel, D2H, and the pinned
    alternatives); the host time of the launch path's parts; ``block_gather``
    at the compressor's (8, 128) shape is timed in turns with its library
-   call and reported in its row;
+   call and reported in its row; ``adamw`` at the main shape in turns with
+   its plain version, beside its bound (22 or 24 B an element) and
+   ``torch.optim.AdamW(fused=True)`` over an f32 param of the same size;
 4. drive the store's device read path at the paper's width: N FFHQ-like
    images of 3x1024x1024 f32 (N = 256 by default; ``--images`` cuts the
    image count, never the image shape) stored as FTSF with 3-D chunks under
@@ -118,9 +124,10 @@ Phases, each of which exits non-zero on failure:
    restore of half of ``params/embed``, and ``prune(keep=1)`` with a
    vacuum. Then three ``make_compressed_train_step`` steps over 2 pods at
    ratio 0.05: pods byte-identical, wire ratio below 0.1. ``block_gather``,
-   ``block_norms`` and ``block_scatter`` must have launched in the phase;
-   each is held to its plain version at every shape the phase gave it, and
-   ``block_gather`` timed at the restore's largest;
+   ``block_norms``, ``block_scatter`` and ``adamw`` must have launched in
+   the phase; the first three are held to their plain versions at every
+   shape the phase gave them, and ``block_gather`` timed at the restore's
+   largest;
 7b. training the deep families at published widths, bf16, batches of
    8x256 tokens through ``FTSFLoader``: (a) zamba2-2.7b cut to 2
    super-blocks (14 layers), one forward and backward with remat
@@ -141,9 +148,11 @@ Phases, each of which exits non-zero on failure:
    save and ``restore(device="cuda")`` (byte-identical, ``block_gather``),
    and ``repro_torch.launch.serve`` over that checkpoint (``--ckpt-gc-keep
    1``, 8 requests, 4 slots), whose tokens must equal an in-process
-   ``ServeEngine``'s over the restored params;
+   ``ServeEngine``'s over the restored params; ``adamw`` must have launched
+   in (a)-(c) and in (d);
 8. the mesh tooling (``repro_torch.dist``, ``launch.dryrun``,
-   ``analysis``), which launches none of the repo's kernels: (a) on a real
+   ``analysis``), which launches none of the repo's kernels but the plain
+   steps' ``adamw`` (a DTensor leaf takes the per-op update): (a) on a real
    1-rank NCCL group, ``jit_train_step`` over a (1, 1) mesh from phase 7's
    granite-3-8b L-layer state (the same seed) and a batch of 8x256 corpus
    tokens, held to ``make_train_step`` from the same state with phase 7's
@@ -686,6 +695,156 @@ def check_compress_kernels(torch, np, kern, main):
     if errs["block_scatter"] != 0.0:
         fail("block_scatter differs from its plain version at the main-path shape")
     return errs
+
+
+# adamw: the kernel against its plain version; p within one ulp of its dtype
+# (the moments may round once apart), 99.9 % of p's elements equal
+ADAMW_RTOL = 1e-6
+ADAMW_EQUAL_SHARE = 0.999
+# granite-3-8b's largest stacked leaf at the benchmark's 10 layers
+ADAMW_MAIN_SHAPE = (10, 4096, 12800)
+# odd sizes take the scalar path; (3, 1000), (64, 300) and (1000, 1028) the
+# vector one, with and without a ragged tail of n % 256
+ADAMW_SHAPES = [(), (1,), (7,), (9,), (4099,), (3, 1000), (5, 13, 7),
+                (64, 300), (1000, 1028), (2, 257, 1031)]
+_INT_VIEW = {"float32": "int32", "float16": "int16", "bfloat16": "int16"}
+
+
+def _adamw_operands(torch, shape, p_dtype, g_dtype, gen, dev, *, skew=0,
+                    pods=0):
+    """(g, p, m, v) of ``shape``; ``skew`` elements in from an aligned base
+    (a contiguous view that starts off 16 bytes), g broadcast over ``pods``
+    leading copies when ``pods`` > 0."""
+    def make(shape, dtype, scale, positive=False):
+        n = math.prod(shape) + skew
+        x = (torch.rand if positive else torch.randn)(
+            n, generator=gen, device=dev)
+        return (x * scale).to(dtype)[skew:].view(shape)
+    full = ((pods,) if pods else ()) + tuple(shape)
+    g = make(shape, g_dtype, 0.3)
+    if pods:
+        g = g[None].expand(full)
+    return (g, make(full, p_dtype, 1.0), make(full, torch.float32, 0.1),
+            make(full, torch.float32, 0.01, positive=True))
+
+
+def _adamw_scalars(torch, opt, ocfg, count, dev):
+    count = torch.tensor(count, dtype=torch.int32, device=dev)
+    c = count.to(torch.float32)
+    return (torch.tensor(0.7, device=dev), opt.schedule(ocfg, count),
+            1 - torch.pow(ocfg.b1, c), 1 - torch.pow(ocfg.b2, c))
+
+
+def _adamw_compare(torch, got, want, what):
+    """Fail unless m and v agree within ADAMW_RTOL and p within one ulp
+    with ADAMW_EQUAL_SHARE of it equal; returns (moments' worst relative
+    difference, p's largest ulp distance, p's share equal)."""
+    (p, m, v), (wp, wm, wv) = got, want
+    worst = 0.0
+    for a, b, name in ((m, wm, "m"), (v, wv, "v")):
+        if not torch.allclose(a, b, rtol=ADAMW_RTOL, atol=0):
+            fail(f"adamw {what}: {name} beyond rtol {ADAMW_RTOL}: max diff "
+                 f"{max_abs_err(a, b)}")
+        worst = max(worst, float(((a - b).abs() / b.abs().clamp_min(1e-30))
+                                 .max()) if a.numel() else 0.0)
+    if p.numel() == 0:
+        return worst, 0, 1.0
+    ints = getattr(torch, _INT_VIEW[str(p.dtype).split(".")[-1]])
+    ulps = (p.contiguous().view(ints).to(torch.int64)
+            - wp.contiguous().view(ints).to(torch.int64)).abs()
+    far, equal = int(ulps.max()), float((ulps == 0).double().mean())
+    if far > 1 or equal < ADAMW_EQUAL_SHARE:
+        fail(f"adamw {what}: p {far} ulps apart at most, {equal!r} equal "
+             f"(limits 1 ulp, {ADAMW_EQUAL_SHARE})")
+    return worst, far, equal
+
+
+def _adamw_pair(torch, kern, ops_kw, g, p, m, v, scalars, what):
+    """The kernel and the plain version on copies of the same leaf."""
+    want = [p.clone(), m.clone(), v.clone()]
+    kern.adamw.plain(g, *want, *scalars, **ops_kw)
+    kern.adamw.launch(g, p, m, v, *scalars, **ops_kw)
+    return _adamw_compare(torch, (p, m, v), want, what)
+
+
+def check_adamw(torch, np, kern):
+    """The fused AdamW kernel against its plain version on the card: ragged
+    and misaligned sizes, a broadcast g, bf16, f16 and f32 p, g in p's
+    dtype and in f32, decay on (ndim >= 2) and off; then the main-path
+    shape with bf16 p and bf16 (plain step) and f32 (compressed step) g.
+    Returns the main shape's (kernel, plain, library, bound) timings and
+    numbers for the report."""
+    from repro_torch.train import optimizer as opt
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(5)
+    ocfg = opt.OptConfig(**TRAIN_OPT)
+    kw = dict(b1=ocfg.b1, b2=ocfg.b2, eps=ocfg.eps,
+              weight_decay=ocfg.weight_decay)
+    scalars = _adamw_scalars(torch, opt, ocfg, 3, dev)
+    t0 = time.perf_counter()
+    n, worst, far, equal = 0, 0.0, 0, 1.0
+    for shape in ADAMW_SHAPES:
+        for p_dtype in (torch.bfloat16, torch.float16, torch.float32):
+            for g_dtype in dict.fromkeys((p_dtype, torch.float32)):
+                for skew, pods in ((0, 0), (1, 0), (0, 2), (1, 2)):
+                    what = (f"{shape} p {p_dtype} g {g_dtype} skew {skew} "
+                            f"pods {pods}")
+                    ops = _adamw_operands(torch, shape, p_dtype, g_dtype, gen,
+                                          dev, skew=skew, pods=pods)
+                    w, f, e = _adamw_pair(torch, kern, kw, *ops, scalars, what)
+                    worst, far, equal = max(worst, w), max(far, f), min(equal, e)
+                    n += 1
+    torch.cuda.synchronize()
+    log(f"[check] adamw sweep: {n} cases, moments' worst relative diff "
+        f"{worst!r} (limit {ADAMW_RTOL}), p at most {far} ulp apart, at "
+        f"least {equal!r} of p equal, {time.perf_counter() - t0!r} s")
+
+    launches = kern.adamw.launches
+    numel = math.prod(ADAMW_MAIN_SHAPE)
+    row = {"shape": list(ADAMW_MAIN_SHAPE)}
+    for g_dtype in (torch.bfloat16, torch.float32):
+        g, p, m, v = _adamw_operands(torch, ADAMW_MAIN_SHAPE, torch.bfloat16,
+                                     g_dtype, gen, dev)
+        tag = "g_" + str(g_dtype).split(".")[-1]
+        w, f, e = _adamw_pair(torch, kern, kw, g, p, m, v, scalars,
+                              f"main shape {tag}")
+        nbytes = numel * (g.element_size() + 2 * 2 + 4 * 4)
+        bound = nbytes / HBM_BYTES_PER_S * 1e3
+        k_t, plain_t = time_pair_ms(
+            lambda: kern.adamw.launch(g, p, m, v, *scalars, **kw),
+            lambda: kern.adamw.plain(g, p, m, v, *scalars, **kw), 3)
+        dev_ms = device_ms_per_call(
+            torch, lambda: kern.adamw.launch(g, p, m, v, *scalars, **kw), 5)[0]
+        row[tag] = {"max_rel_moments": w, "p_ulps": f, "p_equal": e,
+                    "ms": k_t[0], "ms_min_max": k_t[1:], "device_ms": dev_ms,
+                    "plain_ms": plain_t[0], "bytes": nbytes, "bound_ms": bound,
+                    "roofline": 100.0 * bound / k_t[0]}
+        log(f"[check] adamw at the main shape {ADAMW_MAIN_SHAPE}, bf16 p, "
+            f"{tag}: moments' worst relative diff {w!r}, p at most {f} ulp "
+            f"apart, {e!r} equal")
+        log(f"[time] adamw {tag}: kernel {spread(k_t)} (device "
+            f"{dev_ms!r}), plain {spread(plain_t)}, bound {bound!r} ms "
+            f"({nbytes} B at 3.35 TB/s): {100.0 * bound / k_t[0]!r} % of it")
+        del g, p, m, v
+        torch.cuda.empty_cache()
+    # the yardstick: torch's fused AdamW over an f32 param of the same
+    # size (f32 p, g and moments: 28 B an element); the port never calls it
+    w = torch.nn.Parameter(torch.randn(ADAMW_MAIN_SHAPE, generator=gen,
+                                       device=dev))
+    w.grad = torch.randn(ADAMW_MAIN_SHAPE, generator=gen, device=dev)
+    fused = torch.optim.AdamW([w], lr=ocfg.lr, betas=(ocfg.b1, ocfg.b2),
+                              eps=ocfg.eps, weight_decay=ocfg.weight_decay,
+                              fused=True)
+    lib_t = time_ms(fused.step, 3)
+    row["library_ms"], row["library_bytes"] = lib_t[0], numel * 28
+    log(f"[time] adamw's yardstick torch.optim.AdamW(fused=True), f32 param "
+        f"of the same shape ({numel * 28} B): {spread(lib_t)}")
+    del w, fused
+    torch.cuda.empty_cache()
+    if kern.adamw.launches <= launches:
+        fail("adamw did not launch at the main-path shape")
+    log(f"[check] adamw: {time.perf_counter() - t0!r} s in all")
+    return row
 
 
 def main_shapes(torch, np, n_images, coo_size, coo_nnz):
@@ -2432,7 +2591,7 @@ def train_path(torch, np, layers, workdir):
     log(f"[train] launches over phase 7: {json.dumps(counts)}; block_gather by "
         f"variant {json.dumps(kern.block_gather.variant_launches)}; restore "
         f"block_gather {launched['block_gather']}")
-    for name in COMPRESS_KERNELS:
+    for name in COMPRESS_KERNELS + ("adamw",):
         if counts[name] <= 0:
             fail(f"kernel {name} was not launched on the training path")
     box = {}
@@ -2810,7 +2969,7 @@ def deep_train_path(torch, np, workdir):
         paths["train_zamba2"] = kern.launch_counts()
         log(f"[train zamba2] launches over 7b(a)-(c): "
             f"{json.dumps(paths['train_zamba2'])} (the model runs no kernel of "
-            f"this repo)")
+            f"this repo; its optimizer runs adamw)")
 
         torch.cuda.synchronize()
         reset_counts(kern)
@@ -2821,9 +2980,11 @@ def deep_train_path(torch, np, workdir):
         loader.close()
     log(f"[train whisper] launches over 7b(d): "
         f"{json.dumps(paths['train_whisper'])}")
-    for name in COMPRESS_KERNELS:
+    for name in COMPRESS_KERNELS + ("adamw",):
         if paths["train_whisper"][name] <= 0:
             fail(f"kernel {name} was not launched on whisper's training path")
+    if paths["train_zamba2"]["adamw"] <= 0:
+        fail("adamw was not launched on zamba2's training path")
     check_train_kernels(torch, kern, records)
     log(f"[train] phase 7b: {time.perf_counter() - t_phase!r} s")
     return paths
@@ -3263,6 +3424,7 @@ def main() -> int:
     time_launch_path(torch, kern, _build)
     del main
     torch.cuda.empty_cache()
+    adamw_row = check_adamw(torch, np, kern)
 
     # 4. the read path, then 5(a) the stream path over the same store
     workroot = ROOT / "build"
@@ -3350,6 +3512,12 @@ def main() -> int:
                        train_library_ms=t_lib[0], train_bound_ms=t_bound)
             row.update(compress_times)
         rows.append(row)
+    rows.append({"name": "adamw", "route": "cuda",
+                 "source": "src/repro_torch/kernels/csrc/adamw.cu",
+                 "replaces": None, "bound_by": "bytes",
+                 "launches": sum(c["adamw"] for c in paths.values()),
+                 "launches_by_path": {k: c["adamw"] for k, c in paths.items()},
+                 **adamw_row})
     log(nvidia_smi_line())
     log(json.dumps({"kernels": rows}))
     log(json.dumps({"ok": True, "device": {

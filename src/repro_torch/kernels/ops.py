@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from .. import obs
+from . import adamw as _adamw
 from . import block_gather as _gather
 from . import block_norms as _norms
 from . import block_scatter as _bscatter
@@ -29,6 +30,16 @@ def _route(t: torch.Tensor, mod) -> Any:
     if t.device.type == "cpu":
         return mod.plain
     raise ValueError(f"no kernel route for device {t.device}")
+
+
+def adamw(g: torch.Tensor, p: torch.Tensor, m: torch.Tensor, v: torch.Tensor,
+          scale: torch.Tensor, lr: torch.Tensor, b1c: torch.Tensor,
+          b2c: torch.Tensor, *, b1: float, b2: float, eps: float,
+          weight_decay: float) -> None:
+    """One AdamW step of leaf ``p`` and its f32 moments, in place (see
+    :mod:`.adamw`)."""
+    _route(p, _adamw)(g, p, m, v, scale, lr, b1c, b2c, b1=b1, b2=b2, eps=eps,
+                      weight_decay=weight_decay)
 
 
 def block_gather(x: torch.Tensor, ids: torch.Tensor,

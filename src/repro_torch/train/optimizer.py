@@ -12,6 +12,12 @@ leaves of two or more dimensions only, and the result cast back to the
 param dtype. Step-dependent scalars (the schedule, the bias corrections,
 the clip scale) are 0-d f32 tensors on the params' device, so a step never
 waits on the host.
+
+Each leaf takes one of two routes, by what it is: a leaf on the card goes
+through the fused kernel ``kernels/adamw`` (one pass over g, p, m and v);
+a CPU or meta leaf, and a DTensor leaf, whose ZeRO-1 moments may lie
+otherwise than its param, take the same arithmetic one op at a time
+(``kernels.adamw.plain``).
 """
 
 from __future__ import annotations
@@ -23,7 +29,7 @@ from typing import Any, Dict, NamedTuple, Optional, Tuple
 import torch
 
 from .. import obs
-from ..dist.sharding import laid_out_as
+from ..kernels import adamw, ops
 from ..tree import leaves, tree_map
 
 
@@ -110,19 +116,12 @@ def update(cfg: OptConfig, grads: Any, state: OptState, params: Any, *,
         if not ([n for n, _ in g_leaves] == [n for n, _ in m_leaves]
                 == [n for n, _ in v_leaves] == [n for n, _ in p_leaves]):
             raise ValueError("grads, moments and params differ in structure")
+        hyper = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                     weight_decay=cfg.weight_decay)
         for (_, g), (_, m), (_, v), (_, p) in zip(g_leaves, m_leaves, v_leaves,
                                                   p_leaves):
-            g32 = laid_out_as(g.to(torch.float32, copy=True).mul_(scale), m)
-            m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
-            v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
-            step = torch.div(m, b1c, out=g32)
-            den = torch.div(v, b2c).sqrt_().add_(cfg.eps)
-            step.div_(den)
-            del den
-            step = laid_out_as(step, p)
-            if p.ndim >= 2:  # decoupled weight decay on matrices only
-                step.add_(p, alpha=cfg.weight_decay)
-            # p - lr * step in f32, then rounded to the param dtype
-            p.copy_(step.mul_(lr).neg_().add_(p))
+            per_op = p.device.type == "meta" or hasattr(p, "placements")
+            (adamw.plain if per_op else ops.adamw)(
+                g, p, m, v, scale, lr, b1c, b2c, **hyper)
         return params, OptState(m=state.m, v=state.v, count=count), {
             "lr": lr, "grad_norm": gnorm}

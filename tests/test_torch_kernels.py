@@ -22,8 +22,8 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
-from repro_torch.kernels import (_build, block_gather, coo_scatter, ops,
-                                 unshuffle)
+from repro_torch.kernels import (_build, adamw, block_gather, coo_scatter,
+                                 ops, unshuffle)
 from repro_torch.lake import (byte_shuffle, byte_unshuffle,
                               set_unshuffle_kernel)
 from repro_torch.lake.device import to_torch
@@ -307,6 +307,62 @@ def test_kernel_launchers_refuse_cpu_tensors_and_count_nothing():
             coo_scatter.launches) == before
 
 
+def _adamw_operands(case):
+    """(g, p, m, v, scalars) of a (2, 3, 8) leaf, spoiled as ``case`` says."""
+    shape = (2, 3, 8)
+    g = torch.zeros(shape, dtype=torch.bfloat16)
+    p = torch.zeros(shape, dtype=torch.bfloat16)
+    m, v = torch.zeros(shape), torch.zeros(shape)
+    scalars = [torch.tensor(1.0) for _ in range(4)]
+    if case == "broadcast_g":       # a layout the kernel takes
+        g = torch.zeros((3, 8))[None].expand(shape)
+    elif case == "g_not_broadcast":
+        g = torch.zeros((3, 8))
+    elif case == "g_transposed":
+        g = torch.zeros((2, 8, 3), dtype=torch.bfloat16).transpose(1, 2)
+    elif case == "m_not_contiguous":
+        m = torch.zeros((2, 8, 3)).transpose(1, 2)
+    elif case == "v_not_contiguous":
+        v = torch.zeros((3, 2, 8)).transpose(0, 1)
+    elif case == "p_not_contiguous":
+        p = torch.zeros((2, 8, 3), dtype=torch.bfloat16).transpose(1, 2)
+    elif case == "p_float64":
+        p = p.double()
+    elif case == "g_int32":
+        g = g.int()
+    elif case == "m_bfloat16":
+        m = m.bfloat16()
+    elif case == "scale_float64":
+        scalars[0] = scalars[0].double()
+    return g, p, m, v, scalars
+
+
+@pytest.mark.parametrize("case,error,match", [
+    ("cpu", ValueError, "CUDA"),
+    ("broadcast_g", ValueError, "CUDA"),
+    ("g_not_broadcast", ValueError, "shaped like p"),
+    ("g_transposed", ValueError, "contiguous g"),
+    ("m_not_contiguous", ValueError, "contiguous m"),
+    ("v_not_contiguous", ValueError, "contiguous v"),
+    ("p_not_contiguous", ValueError, "contiguous p"),
+    ("p_float64", TypeError, "float64 path for p"),
+    ("g_int32", TypeError, "int32 path for g"),
+    ("m_bfloat16", TypeError, "f32 m"),
+    ("scale_float64", TypeError, "f32 step scalars"),
+])
+def test_adamw_launch_refuses_and_counts_nothing(case, error, match):
+    """``adamw.launch`` refuses CPU tensors (a broadcast g, which it takes
+    on the card, included), a g that is not p's shape or lies otherwise
+    than contiguous or broadcast over leading dims, non-contiguous m, v or
+    p, and dtypes outside its set; nothing is counted."""
+    g, p, m, v, scalars = _adamw_operands(case)
+    before = adamw.launches
+    with pytest.raises(error, match=match):
+        adamw.launch(g, p, m, v, *scalars, b1=0.9, b2=0.95, eps=1e-8,
+                     weight_decay=0.1)
+    assert adamw.launches == before
+
+
 def test_dispatch_refuses_other_devices():
     with pytest.raises(ValueError, match="device"):
         ops.unshuffle(torch.zeros((2, 4), dtype=torch.uint8, device="meta"))
@@ -329,6 +385,7 @@ def test_build_raises_without_nvcc(monkeypatch, tmp_path):
 
 
 def test_build_library_name_tracks_source_and_flags():
+    assert "adamw" in _build.SOURCES
     paths = {name: _build.lib_path(name) for name in _build.SOURCES}
     assert len(set(paths.values())) == len(_build.SOURCES)
     for name, path in paths.items():

@@ -304,6 +304,128 @@ def test_weight_decay_only_on_matrices():
     assert torch.all(p["w"] < 1.0)
 
 
+def _per_op_leaf(cfg, g, p, m, v, scale, lr, b1c, b2c):
+    """The per-op update of one plain leaf as ``optimizer.update`` ran it
+    before the fused kernel, kept here as the yardstick of
+    ``kernels.adamw.plain``."""
+    g32 = g.to(torch.float32, copy=True).mul_(scale)
+    m.mul_(cfg.b1).add_(g32, alpha=1 - cfg.b1)
+    v.mul_(cfg.b2).addcmul_(g32, g32, value=1 - cfg.b2)
+    step = torch.div(m, b1c, out=g32)
+    den = torch.div(v, b2c).sqrt_().add_(cfg.eps)
+    step.div_(den)
+    if p.ndim >= 2:
+        step.add_(p, alpha=cfg.weight_decay)
+    p.copy_(step.mul_(lr).neg_().add_(p))
+
+
+def _leaf_inputs(shape, p_dtype, g_dtype, seed):
+    gen = torch.Generator().manual_seed(seed)
+    p = torch.randn(shape, generator=gen).to(p_dtype)
+    g = (torch.randn(shape, generator=gen) * 0.3).to(g_dtype)
+    m = torch.randn(shape, generator=gen) * 0.1
+    v = torch.rand(shape, generator=gen) * 0.01
+    return g, p, m, v
+
+
+def _step_scalars(cfg, count, gnorm):
+    count = torch.tensor(count, dtype=torch.int32)
+    scale = torch.clamp(cfg.grad_clip / torch.clamp(torch.tensor(gnorm),
+                                                    min=1e-9), max=1.0)
+    return (scale, opt.schedule(cfg, count),
+            1 - torch.pow(cfg.b1, count.to(torch.float32)),
+            1 - torch.pow(cfg.b2, count.to(torch.float32)))
+
+
+def _same_bits(a, b):
+    return a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+        a.contiguous().view(-1).view(torch.uint8),
+        b.contiguous().view(-1).view(torch.uint8))
+
+
+@pytest.mark.parametrize("p_dtype", [torch.bfloat16, torch.float16,
+                                     torch.float32])
+@pytest.mark.parametrize("shape", [(6, 10), (3, 4, 8), (10,), ()],
+                         ids=["matrix", "stacked", "vector", "0-d"])
+@pytest.mark.parametrize("g_f32", [False, True], ids=["g_as_p", "g_f32"])
+def test_adamw_plain_is_the_per_op_update_bit_for_bit(p_dtype, shape, g_f32):
+    """``kernels.adamw.plain`` gives the m, v and p of the per-op update
+    bit for bit: decay on (ndim >= 2) and off, every param dtype, a 0-d
+    leaf, g in the param dtype or in f32 (the compressed step's mean)."""
+    from repro_torch.kernels import adamw as kadamw
+    cfg = opt.OptConfig(lr=1e-2, warmup_steps=2, total_steps=20)
+    g, p, m, v = _leaf_inputs(shape, p_dtype,
+                              torch.float32 if g_f32 else p_dtype, seed=7)
+    scalars = _step_scalars(cfg, 1, 3.5)
+    want = [t.clone() for t in (p, m, v)]
+    _per_op_leaf(cfg, g, *want, *scalars)
+    got = [t.clone() for t in (p, m, v)]
+    kadamw.plain(g, *got, *scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                 weight_decay=cfg.weight_decay)
+    for name, a, b in zip("pmv", got, want):
+        assert _same_bits(a, b), name
+    assert not _same_bits(got[0], p)  # the step moved the params
+
+
+def test_adamw_plain_reads_an_expanded_grad_as_its_copy():
+    """The compressed step's mean expanded over n_pods = 2 (stride 0) gives
+    the bits that the same g materialised gives."""
+    from repro_torch.kernels import adamw as kadamw
+    cfg = opt.OptConfig(lr=1e-2, warmup_steps=0)
+    _, p, m, v = (x[None].expand(2, 5, 8).contiguous() for x in
+                  _leaf_inputs((5, 8), torch.bfloat16, torch.float32, 3))
+    mean = torch.randn((5, 8), generator=torch.Generator().manual_seed(4))
+    wide = mean[None].expand(2, 5, 8)
+    assert wide.stride(0) == 0
+    scalars = _step_scalars(cfg, 2, 0.5)
+    kw = dict(b1=cfg.b1, b2=cfg.b2, eps=cfg.eps, weight_decay=cfg.weight_decay)
+    a = [t.clone() for t in (p, m, v)]
+    b = [t.clone() for t in (p, m, v)]
+    kadamw.plain(wide, *a, *scalars, **kw)
+    kadamw.plain(wide.contiguous(), *b, *scalars, **kw)
+    for name, x, y in zip("pmv", a, b):
+        assert _same_bits(x, y), name
+    assert _same_bits(a[0][0], a[0][1])  # both pods moved alike
+
+
+def test_update_runs_cpu_leaves_through_plain_and_launches_nothing():
+    """Leaf by leaf, ``update`` on the CPU gives what ``kernels.adamw.plain``
+    gives, and counts no kernel launch."""
+    from repro_torch.kernels import adamw as kadamw
+    cfg = opt.OptConfig(lr=1e-2, warmup_steps=2, total_steps=20)
+    shapes = {"w": ((6, 10), torch.bfloat16), "b": ((10,), torch.float32),
+              "s": ((), torch.float32)}
+    ins = {k: _leaf_inputs(sh, dt, dt, i) for i, (k, (sh, dt))
+           in enumerate(shapes.items())}
+    grads = {k: x[0] for k, x in ins.items()}
+    params = {k: x[1].clone() for k, x in ins.items()}
+    state = opt.OptState(m={k: x[2].clone() for k, x in ins.items()},
+                         v={k: x[3].clone() for k, x in ins.items()},
+                         count=torch.tensor(0, dtype=torch.int32))
+    before = kadamw.launches
+    _, new, met = opt.update(cfg, grads, state, params)
+    assert kadamw.launches == before
+    scalars = _step_scalars(cfg, 1, float(met["grad_norm"]))
+    for k, (g, p, m, v) in ins.items():
+        kadamw.plain(g, p, m, v, *scalars, b1=cfg.b1, b2=cfg.b2, eps=cfg.eps,
+                     weight_decay=cfg.weight_decay)
+        for name, a, b in (("p", params[k], p), ("m", new.m[k], m),
+                           ("v", new.v[k], v)):
+            assert _same_bits(a, b), (k, name)
+
+
+def test_update_on_meta_leaves_runs_per_op():
+    """A dry run's meta leaves have no memory for a kernel: ``update`` takes
+    the per-op route there, and the shapes and dtypes come out unchanged."""
+    cfg = opt.OptConfig()
+    params = {"w": torch.empty((4, 8), dtype=torch.bfloat16, device="meta"),
+              "b": torch.empty((8,), device="meta")}
+    grads = {k: torch.empty_like(p) for k, p in params.items()}
+    p, s, _ = opt.update(cfg, grads, opt.init(params), params)
+    assert p["w"].is_meta and p["w"].dtype == torch.bfloat16
+    assert s.m["b"].shape == (8,) and s.count.is_meta
+
+
 def test_global_norm_matches_reference_on_a_broadcast_leaf():
     rng = np.random.default_rng(3)
     x = rng.standard_normal((5, 7)).astype(np.float32)
