@@ -1,14 +1,9 @@
 """block_gather's share of its roofline over the profiled steps: the least time
 of its launches (each input byte read once and each output byte written
 once, at the H100's 3.35 TB/s; bytes from the operands' shapes by
-``yardstick.kernel_bytes``) over their device time, in %."""
-from yardstick import peaks
+``yardstick/probes/block_gather.py``) over their device time, in %."""
+from yardstick import roofline
 
 
 def read(run):
-    if run.trace is None or "block_gather" not in run.kernel_bytes:
-        return None
-    s = run.trace.device_seconds("bench.kernel.block_gather")
-    if not s:
-        return None
-    return 100.0 * run.kernel_bytes["block_gather"] / peaks.HBM_BYTES_PER_S / s
+    return roofline.share(run, "block_gather")

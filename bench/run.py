@@ -78,7 +78,7 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
     t = time.perf_counter()
     import torch
     from yardstick import cell as run_cell
-    from yardstick import program, spec
+    from yardstick import program, spec, stats
     try:
         import repro_torch  # noqa: F401  (the program under test)
     except ImportError as e:
@@ -118,11 +118,18 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
         + f"; process start to the window {setup_s!r}")
 
     win = run_cell.window(s, args.seconds, clock, tokens)
+    gaps = stats.step_gaps_ms(win.start_ms, win.ends_ms)
     log(f"window: {win.steps} steps of {tokens} tokens in "
-        f"{win.ends_ms[-1] / 1e3!r} s")
+        f"{win.ends_ms[-1] / 1e3!r} s; step ms p10 / p50 / p90 / max "
+        + " / ".join(repr(stats.percentile(gaps, q)) for q in (10, 50, 90, 100)))
+    half = win.steps // 2
+    if half:
+        log(f"window halves: tokens/s "
+            f"{stats.window_rate(tokens, win.start_ms, win.ends_ms[:half])!r} / "
+            f"{stats.window_rate(tokens, win.ends_ms[half - 1], win.ends_ms[half:])!r}")
     peak_window = torch.cuda.max_memory_allocated() if dev.type == "cuda" else 0
     trace = None
-    probes = program.Probes()
+    probes = program.Probes(m["name"] for m in cell.per_layer)
     if args.trace:
         trace = run_cell.profiled_steps(s, mix["profile_steps"], clock, probes)
         for st in probes.compress_stats[-1:]:
@@ -141,6 +148,7 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
     samples = [ids for _, ids in s.feed.kept[:run_cell.CHECK_STEPS]]
     table = s.table
     kernel_bytes = probes.kernel_bytes() if args.trace else {}
+    kernel_flops = probes.kernel_flops() if args.trace else {}
     s.close()
     del s
     run_cell.release()
@@ -157,7 +165,8 @@ def main(argv=None, *, root: Path = ROOT, device: str = "cuda",
 
     run = SimpleNamespace(cell=cell, arch=arch, mix=mix, window=win,
                           setup_s=setup_s, times=times, trace=trace,
-                          kernel_bytes=kernel_bytes, probes=probes,
+                          kernel_bytes=kernel_bytes, kernel_flops=kernel_flops,
+                          probes=probes,
                           peak_window_bytes=peak_window)
     metrics = {}
     for m in (cell.per_layer if args.trace else cell.end_to_end):

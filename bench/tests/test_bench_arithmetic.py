@@ -10,7 +10,7 @@ import torch
 
 from conftest import BENCH, TINY_DENSE, TINY_HYBRID, TINY_UNTIED
 
-# the arithmetic's hybrid branch at zamba2-2.7b's widths and depth (no cell
+# the hybrid family's arithmetic at zamba2-2.7b's widths and depth (no cell
 # runs it yet)
 ZAMBA2 = {"name": "zamba2-2.7b", "family": "hybrid", "n_layers": 54,
           "d_model": 2560, "n_heads": 32, "n_kv_heads": 32, "head_dim": 80,
@@ -48,7 +48,7 @@ def test_train_flops_against_the_program(name):
     ours = accounting.train_step_flops(arch, b, t)
     extra = 0.0
     if arch["family"] == "hybrid":
-        shared = accounting._attn_mlp_params(arch)
+        shared = accounting.attn_mlp_params(arch)
         extra = 6.0 * shared * (arch["n_layers"] // arch["shared_attn_every"] - 1) * b * t
     assert ours == pytest.approx(theirs["model_flops"] + theirs["attn_flops"] + extra,
                                  rel=1e-12)

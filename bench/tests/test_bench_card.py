@@ -1,9 +1,9 @@
 """On the card: the float8 control comes out far from the reference where
 the program does not, at granite-3-8b's widths cut to 2 layers and 2 x
 256 tokens a step (a size a test run holds), over three seeds; and the
-profiler's trace of compressed steps yields each kernel's roofline share
-at or under 100 %. Run on the chip: ``python -m pytest bench/tests -m
-card``."""
+profiler's trace of compressed steps yields each probed kernel's roofline
+share (the compressor's three and ``adamw``) at or under 100 %. Run on
+the chip: ``python -m pytest bench/tests -m card``."""
 
 import json
 
@@ -45,10 +45,13 @@ def test_kernel_rooflines_at_most_100(card, tmp_path):
     cell = _cell("bsgs")
     s = run_cell.setup(cell, 7, card, {})
     run_cell.check_steps(s, cell, 7, card)
-    probes = program.Probes()
+    from yardstick import probes as kernel_probes
+    probes = program.Probes(f"{k}_roofline" for k in kernel_probes.names())
     trace = run_cell.profiled_steps(s, 2, run_cell.Clock(card), probes)
-    run = SimpleNamespace(trace=trace, kernel_bytes=probes.kernel_bytes(), mix=cell.mix)
-    for k in program.Probes.KERNELS:
+    run = SimpleNamespace(trace=trace, kernel_bytes=probes.kernel_bytes(),
+                          kernel_flops=probes.kernel_flops(), mix=cell.mix)
+    assert {"block_norms", "block_gather", "block_scatter", "adamw"} <= set(run.kernel_bytes)
+    for k in run.kernel_bytes:
         share = spec.reader(BENCH.parent, f"{k}_roofline")(run)
         assert share is not None and 0 < share <= 100, (k, share)
     s.close()

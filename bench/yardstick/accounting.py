@@ -3,15 +3,26 @@
 A copy of the port's ``analysis/accounting.py`` (6 N D plus attention for
 a training step), computed from a configuration's sizes alone rather than
 from the program's parameter tree, so that a later change to the program
-cannot move the yardstick.
+cannot move the yardstick. What differs by family (:mod:`.families`) is
+counted by the family's module from the pieces here.
 """
 
 from __future__ import annotations
 
 from typing import Dict
 
+from . import families
 
-def _attn_mlp_params(a: Dict) -> int:
+
+def embed_params(a: Dict) -> int:
+    """The embedding, the final norm and an untied head."""
+    d, v = a["d_model"], a["vocab_size"]
+    return v * d + d + (0 if a.get("tie_embeddings") else d * v)
+
+
+def attn_mlp_params(a: Dict) -> int:
+    """One pre-norm attention+MLP block: two norm scales, the GQA
+    projections, the SwiGLU MLP."""
     d, hd = a["d_model"], a["head_dim"]
     attn = d * a["n_heads"] * hd + 2 * d * a["n_kv_heads"] * hd \
         + a["n_heads"] * hd * d
@@ -26,41 +37,34 @@ def mamba2_dims(a: Dict):
     return d_inner, heads, n, d_inner + 2 * n
 
 
-def _mamba2_params(a: Dict) -> int:
+def mamba2_params(a: Dict) -> int:
+    """One Mamba2 layer: its norm, ``w_in``, the conv, ``a_log``,
+    ``dt_bias`` and ``d_skip``, the inner norm, ``w_out``."""
     d = a["d_model"]
     d_inner, heads, n, conv_ch = mamba2_dims(a)
     return (d + d * (2 * d_inner + 2 * n + heads) + 4 * conv_ch + 3 * heads
             + d_inner + d_inner * d)
 
 
+def attention_layer_flops(a: Dict, b: int, t: int) -> float:
+    """Forward score and value matmuls of one attention layer over the
+    whole (T, T) square: 4 B Hq T T hd (the port's ``attention_flops``)."""
+    return 4.0 * b * a["n_heads"] * t * t * a["head_dim"]
+
+
 def param_count(a: Dict) -> int:
-    """Parameters of the dense and hybrid families (``arch`` of a
-    configuration file): embedding, final norm, untied head, the layers."""
-    d, v = a["d_model"], a["vocab_size"]
-    n = v * d + d + (0 if a.get("tie_embeddings") else d * v)
-    if a["family"] == "dense":
-        return n + a["n_layers"] * _attn_mlp_params(a)
-    if a["family"] == "hybrid":
-        return n + _attn_mlp_params(a) + a["n_layers"] * _mamba2_params(a)
-    raise ValueError(f"no parameter count for family {a['family']!r}")
+    """Parameters of the ``arch`` of a configuration file, by its family."""
+    return families.load(a).param_count(a)
 
 
 def attention_flops(a: Dict, b: int, t: int) -> float:
-    """Forward score and value matmuls over the whole (T, T) square:
-    4 B Hq T T hd per attention layer (the port's ``attention_flops``)."""
-    layers = a["n_layers"]
-    if a["family"] == "hybrid":
-        layers = a["n_layers"] // a["shared_attn_every"]
-    return 4.0 * b * a["n_heads"] * t * t * a["head_dim"] * layers
+    """Forward attention FLOPs of B x T tokens, by the family."""
+    return families.load(a).attention_flops(a, b, t)
 
 
 def applied_params(a: Dict) -> int:
-    """Parameters a token passes through: the hybrid family's shared block
-    once per application (every ``shared_attn_every`` layers)."""
-    n = param_count(a)
-    if a["family"] == "hybrid":
-        n += (a["n_layers"] // a["shared_attn_every"] - 1) * _attn_mlp_params(a)
-    return n
+    """Parameters a token passes through, by the family."""
+    return families.load(a).applied_params(a)
 
 
 def train_step_flops(a: Dict, b: int, t: int) -> float:

@@ -1,17 +1,19 @@
 """The system under test, ``repro_torch``, as the benchmark drives it:
 its train steps, its store and its loader, and the names its modules
-give the layers. This is the one module of the benchmark that imports
-the program; the reference and the arithmetic never do.
+give the layers. This module and :mod:`.spans`, which reads the program's
+own spans, are the benchmark's only modules that import the program; the
+reference, the families, the probes and the arithmetic never do.
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Any, Callable, Dict, List, Tuple
+import importlib
+from typing import Any, Callable, Dict, Iterable, List, Tuple
 
 import torch
 
-from . import kernel_bytes
+from . import probes as kernel_probes
 
 
 def arch_config(arch: dict):
@@ -140,24 +142,24 @@ def open_loader(store, tid: str, mix: dict, seed: int, device):
 
 class Probes:
     """While active, wraps the program's compressor and optimizer entry
-    points and the compressor kernels' launchers in ``record_function``
-    ranges (``bench.compress``, ``bench.adamw``, ``bench.kernel.<name>``),
-    notes each kernel launch's operand shapes for its byte count, and notes
-    each tile gather of the compressor's top-k (``ops.block_gather``, on
-    the card or not: the leaf's 2-D shape, its tile and the ids sent) for
-    the payload's bytes. No argument or result is changed. Used only
+    points and each probed kernel's target (``yardstick/probes/``) in
+    ``record_function`` ranges (``bench.compress``, ``bench.adamw``,
+    ``bench.kernel.<name>``), notes what each kernel launch's probe keeps
+    for its byte and operation counts, and notes each tile gather of the
+    compressor's top-k (``ops.block_gather``, on the card or not: the
+    leaf's 2-D shape, its tile and the ids sent) for the payload's bytes.
+    The kernels probed are those that ``metrics``, the names of the cell's
+    per-layer metrics, read. No argument or result is changed. Used only
     around profiled steps."""
 
-    KERNELS = ("block_norms", "block_gather", "block_scatter")
-
-    def __init__(self):
-        self.launches: Dict[str, List[Tuple]] = {k: [] for k in self.KERNELS}
+    def __init__(self, metrics: Iterable[str] = ()):
+        self.kernels = kernel_probes.read_by(metrics)
+        self.launches: Dict[str, List[Tuple]] = {k: [] for k in self.kernels}
         self.gathers: List[Tuple] = []
         self.compress_stats: List[Dict[str, int]] = []
 
     @contextlib.contextmanager
     def active(self):
-        from repro_torch import kernels
         from repro_torch.kernels import ops
         from repro_torch.train import grad_compress, optimizer
         undo = []
@@ -175,6 +177,10 @@ class Probes:
             setattr(mod, attr, wrapped)
             undo.append((mod, attr, orig))
 
+        def keep(name, probe):
+            return lambda a, kw, out: self.launches[name].append(
+                probe.note(a, kw, out))
+
         wrap(grad_compress, "compressed_grad_mean", "bench.compress",
              lambda a, kw, out: self.compress_stats.append(
                  {k: out[2][k] for k in ("sent_bytes", "dense_bytes")}))
@@ -182,16 +188,9 @@ class Probes:
         wrap(ops, "block_gather", None,
              lambda a, kw, out: self.gathers.append(
                  (tuple(a[0].shape), tuple(a[2]), a[1].numel())))
-        wrap(kernels.block_norms, "launch", "bench.kernel.block_norms",
-             lambda a, kw, out: self.launches["block_norms"].append(
-                 (tuple(a[0].shape), a[0].element_size(), tuple(a[1]))))
-        wrap(kernels.block_gather, "launch", "bench.kernel.block_gather",
-             lambda a, kw, out: self.launches["block_gather"].append(
-                 (tuple(a[0].shape), a[0].element_size(), tuple(a[2]), a[1])))
-        wrap(kernels.block_scatter, "launch", "bench.kernel.block_scatter",
-             lambda a, kw, out: self.launches["block_scatter"].append(
-                 (tuple(a[0].shape), a[0].element_size(),
-                  tuple(a[2].shape[1:]), a[1], bool(kw.get("inplace")))))
+        for name, probe in self.kernels.items():
+            wrap(importlib.import_module(probe.MODULE), probe.ATTR,
+                 f"bench.kernel.{name}", keep(name, probe))
         try:
             yield self
         finally:
@@ -199,16 +198,14 @@ class Probes:
                 setattr(mod, attr, orig)
 
     def kernel_bytes(self) -> Dict[str, int]:
-        """Least bytes of every noted launch, summed per kernel (reads the
-        ids of gathers and scatters: call after the device has finished)."""
-        out = {}
-        norms = self.launches["block_norms"]
-        out["block_norms"] = sum(kernel_bytes.block_norms(
-            s[0], s[1], b[0], b[1], e) for s, e, b in norms)
-        out["block_gather"] = sum(kernel_bytes.block_gather(
-            s[0], s[1], b[0], b[1], e, ids.reshape(-1).tolist())
-            for s, e, b, ids in self.launches["block_gather"])
-        out["block_scatter"] = sum(kernel_bytes.block_scatter(
-            s[0], s[1], b[0], b[1], e, ids.reshape(-1).tolist(), inplace)
-            for s, e, b, ids, inplace in self.launches["block_scatter"])
-        return {k: v for k, v in out.items() if self.launches[k]}
+        """Least bytes of every noted launch, summed per kernel that
+        launched (reads the ids of gathers and scatters: call after the
+        device has finished)."""
+        return {k: sum(map(self.kernels[k].least_bytes, noted))
+                for k, noted in self.launches.items() if noted}
+
+    def kernel_flops(self) -> Dict[str, int]:
+        """Operations of every noted launch, summed per kernel that
+        launched."""
+        return {k: sum(map(self.kernels[k].flops, noted))
+                for k, noted in self.launches.items() if noted}

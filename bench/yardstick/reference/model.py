@@ -1,6 +1,7 @@
-"""Forward pass and loss of the dense family (granite) in plain PyTorch,
-and of the hybrid family (zamba2), which the tests hold against the
-program's f32 path.
+"""The plain reference's layers in PyTorch, and the loss of a
+configuration by its family's module (``yardstick/families/<family>.py``:
+the dense family, granite; the hybrid family, zamba2), which the tests
+hold against the program's f32 path.
 
 Weights are a flat ``{name: tensor}`` dict named as in
 :func:`yardstick.weights.layout`. Every activation is f32. ``mm`` computes
@@ -11,8 +12,7 @@ The layers follow the configurations as the repository defines them:
 pre-norm RMSNorm blocks; GQA attention with half-split RoPE, causal
 softmax over all keys; a SwiGLU MLP; a head tied to the embedding
 (its transpose) where the weights hold no ``unembed``; a mean
-cross-entropy. The hybrid family puts one shared attention+MLP block
-ahead of every ``shared_attn_every`` Mamba2 layers. A Mamba2 layer:
+cross-entropy. A Mamba2 layer:
 ``w_in`` splits into z, (x, B, C) and dt; (x, B, C) pass a causal
 depthwise conv of width 4 and SiLU; dt = softplus(dt + dt_bias), the
 decay a = exp(-exp(a_log) dt); the SSD recurrence h_t = a_t h_{t-1} +
@@ -30,6 +30,7 @@ from typing import Callable, Dict
 import torch
 import torch.nn.functional as F
 
+from .. import families
 from ..accounting import mamba2_dims
 
 SSD_CHUNK = 256
@@ -160,7 +161,7 @@ def mamba2(w: Dict, x: torch.Tensor, a: dict, mm: MM):
     return mm(y, w["w_out"])
 
 
-def _layers(w: Dict, prefix: str, depth: int):
+def layers(w: Dict, prefix: str, depth: int):
     """The stacked leaves under ``prefix`` as per-layer dicts (nested
     ``depth`` deep), each leaf unbound once so that the backward pass
     stacks the layers' gradients in one op."""
@@ -174,22 +175,18 @@ def _layers(w: Dict, prefix: str, depth: int):
     return split([w[k] for k in keys], depth)
 
 
-def loss(w: Dict, a: dict, tokens: torch.Tensor, labels: torch.Tensor,
-         mm: MM = matmul) -> torch.Tensor:
-    """Mean next-token cross-entropy of f32 weights ``w`` over (B, T)
-    ``tokens`` and ``labels``."""
-    x = w["embed"][tokens.long()]
-    if a["family"] == "dense":
-        for layer in _layers(w, "blocks/", 1):
-            x = attn_mlp(layer, "", x, a, mm)
-    elif a["family"] == "hybrid":
-        for layers in _layers(w, "blocks/", 2):
-            x = attn_mlp(w, "shared_attn/", x, a, mm)
-            for layer in layers:
-                x = x + mamba2(layer, x, a, mm)
-    else:
-        raise ValueError(f"no reference for family {a['family']!r}")
+def head_loss(w: Dict, a: dict, x: torch.Tensor, labels: torch.Tensor,
+              mm: MM) -> torch.Tensor:
+    """The final norm, the head (the embedding's transpose where ``w``
+    holds no ``unembed``) and the mean cross-entropy over ``labels``."""
     h = rmsnorm(x, w["final_norm/scale"], a["norm_eps"])
     logits = mm(h, w["unembed"] if "unembed" in w else w["embed"].t())
     return F.cross_entropy(logits.reshape(-1, logits.shape[-1]),
                            labels.reshape(-1).long())
+
+
+def loss(w: Dict, a: dict, tokens: torch.Tensor, labels: torch.Tensor,
+         mm: MM = matmul) -> torch.Tensor:
+    """Mean next-token cross-entropy of f32 weights ``w`` over (B, T)
+    ``tokens`` and ``labels``, by the family of ``a``."""
+    return families.load(a).loss(w, a, tokens, labels, mm)

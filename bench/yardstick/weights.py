@@ -2,11 +2,13 @@
 
 :func:`layout` lists every leaf as the store's tensor id names it (the
 port's and the reference package's parameter trees: nested dicts, stacked
-layers), with its shape, dtype and initial distribution. :func:`draw`
-makes every leaf on the card from one ``torch.Generator`` seeded by the
-run's seed, in a fixed order and in chunks of at most ``CHUNK`` elements,
-so a second call with the same seed gives the same bytes: the reference
-draws its copy of the initial weights again instead of keeping one.
+layers), with its shape, dtype and initial distribution; the family's
+module (:mod:`.families`) makes the list from the leaf helpers here.
+:func:`draw` makes every leaf on the card from one ``torch.Generator``
+seeded by the run's seed, in a fixed order and in chunks of at most
+``CHUNK`` elements, so a second call with the same seed gives the same
+bytes: the reference draws its copy of the initial weights again instead
+of keeping one.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ from typing import Dict, Iterator, List, NamedTuple, Tuple
 
 import torch
 
+from . import families
 from .accounting import mamba2_dims
 
 CHUNK = 1 << 27     # f32 elements drawn at a time (512 MiB)
@@ -33,7 +36,27 @@ class Leaf(NamedTuple):
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 
 
-def _attn_mlp(prefix: str, lead: Tuple[int, ...], a: dict, dt) -> List[Leaf]:
+def dtype(a: dict) -> torch.dtype:
+    """The dtype the ``arch`` states for its weights."""
+    return _DTYPES[a["dtype"]]
+
+
+def embed_leaves(a: dict) -> List[Leaf]:
+    """The embedding, the final norm and, where the head is not tied to
+    the embedding, the head."""
+    dt = dtype(a)
+    d, v = a["d_model"], a["vocab_size"]
+    out = [Leaf("embed", (v, d), dt, "normal", 0.02),
+           Leaf("final_norm/scale", (d,), dt, "ones")]
+    if not a.get("tie_embeddings"):
+        out.append(Leaf("unembed", (d, v), dt, "normal", d ** -0.5))
+    return out
+
+
+def attn_mlp_leaves(prefix: str, lead: Tuple[int, ...], a: dict) -> List[Leaf]:
+    """An attention+MLP block's leaves under ``prefix``, each stacked over
+    the ``lead`` dims."""
+    dt = dtype(a)
     d, hd, f = a["d_model"], a["head_dim"], a["d_ff"]
     hq, hkv = a["n_heads"] * hd, a["n_kv_heads"] * hd
     return [
@@ -49,7 +72,10 @@ def _attn_mlp(prefix: str, lead: Tuple[int, ...], a: dict, dt) -> List[Leaf]:
     ]
 
 
-def _mamba2(lead: Tuple[int, ...], a: dict, dt) -> List[Leaf]:
+def mamba2_leaves(lead: Tuple[int, ...], a: dict) -> List[Leaf]:
+    """A Mamba2 layer's leaves under ``blocks/``, stacked over the ``lead``
+    dims."""
+    dt = dtype(a)
     d = a["d_model"]
     d_inner, heads, n, conv_ch = mamba2_dims(a)
     f32 = torch.float32
@@ -70,22 +96,8 @@ def _mamba2(lead: Tuple[int, ...], a: dict, dt) -> List[Leaf]:
 
 def layout(a: dict) -> List[Leaf]:
     """Every leaf of the ``arch`` of a configuration file, sorted by name
-    (the order in which the trees flatten)."""
-    dt = _DTYPES[a["dtype"]]
-    d, v = a["d_model"], a["vocab_size"]
-    out = [Leaf("embed", (v, d), dt, "normal", 0.02),
-           Leaf("final_norm/scale", (d,), dt, "ones")]
-    if not a.get("tie_embeddings"):
-        out.append(Leaf("unembed", (d, v), dt, "normal", d ** -0.5))
-    if a["family"] == "dense":
-        out += _attn_mlp("blocks", (a["n_layers"],), a, dt)
-    elif a["family"] == "hybrid":
-        every = a["shared_attn_every"]
-        out += _mamba2((a["n_layers"] // every, every), a, dt)
-        out += _attn_mlp("shared_attn", (), a, dt)
-    else:
-        raise ValueError(f"no layout for family {a['family']!r}")
-    return sorted(out, key=lambda leaf: leaf.name)
+    (the order in which the trees flatten), as its family lays it out."""
+    return families.load(a).layout(a)
 
 
 def iter_draw(a: dict, seed: int, device) -> Iterator[Tuple[str, torch.Tensor]]:
